@@ -1,0 +1,71 @@
+"""curl_tpu_torch — the PyTorch/CUDA port of curl_tpu.
+
+Secure multi-party computation with Curl's wavelet-LUT nonlinearities, on
+PyTorch and hand-written CUDA kernels for one NVIDIA Hopper card:
+
+  * shares are ``(P, ...)`` torch.int64 tensors with every party's share on
+    the leading axis (simulated parties on one device); reveals reduce over
+    that axis (``comm``);
+  * every exact ring matmul runs in the ``ring_mm`` CUDA kernel, every bulk
+    random draw and sharing in the ``philox`` CUDA kernel
+    (``kernels/``, ``csrc/``); CPU tensors take their plain torch versions.
+
+    import curl_tpu_torch as ct
+    ct.init(world_size=2, seed=0)          # on the CUDA card
+    x = ct.cryptensor([1.0, -2.0])
+    x.gelu().get_plain_text()
+
+The package imports no JAX and nothing of ``curl_tpu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import comm
+from . import random as _rng
+from .config import cfg
+from .encoder import FixedPointEncoder
+from .mpc import MPCTensor, get_default_provider  # noqa: F401
+from .mpc.ptype import ptype
+from . import functions  # noqa: F401  (installs ops on MPCTensor)
+from . import nn  # noqa: F401
+from . import models  # noqa: F401
+from .nn import module as _nn_module
+
+__version__ = "0.1.0"
+
+# the port's encrypted tensor: every party's share already stacked
+CrypTensor = MPCTensor
+
+
+def init(world_size: int = 2, seed: int = 0, device=None):
+    """Start a session: load the config, derive the party streams from
+    ``seed`` and restart the draw counter and the parameter-init generator.
+
+    ``device=None`` runs on the CUDA card and raises where there is none;
+    only an explicit ``device="cpu"`` runs on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "curl_tpu_torch.init: no CUDA device; pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    comm.set_device(device)
+    comm.set_world_size(world_size)
+    _rng.set_keys(_rng.make_party_keys(seed, world_size))
+    _rng.reset_count()
+    _nn_module.set_init_seed(seed)
+
+
+def cryptensor(value, src: int = 0, precision=None, ptype_=ptype.arithmetic) -> MPCTensor:
+    """Encrypt a plaintext held by party ``src``."""
+    return MPCTensor.encrypt(value, src=src, precision=precision, ptype=ptype_)
+
+
+def get_communication_stats():
+    return comm.get_communication_stats()
+
+
+def reset_communication_stats():
+    comm.reset_communication_stats()

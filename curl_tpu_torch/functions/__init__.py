@@ -1,0 +1,8 @@
+"""Function library: share-structure ops and MPC math, installed on the
+tensor classes at import (counterpart of ``curl_tpu/functions``)."""
+
+from . import regular  # noqa: F401  (structure ops, mean/var/prod)
+from . import logic  # noqa: F401    (comparisons, sign)
+from . import sampling  # noqa: F401  (weighted_index)
+from . import maximum  # noqa: F401  (max, max_value)
+from . import approximations  # noqa: F401  (LUT nonlinearities)

@@ -1,0 +1,227 @@
+"""MPCTensor: ptype-dispatching facade over the share primitives.
+
+Counterpart of ``curl_tpu/mpc/mpc.py``. Wraps an ArithmeticSharedTensor or
+BinarySharedTensor whose share carries the explicit party axis, converts
+between them (A2B/B2A) and hosts the sign primitive ``_ltz``. The function
+library (``curl_tpu_torch.functions``) installs its ops on this class at
+import, as the JAX package does. It is also the port's user-facing
+encrypted tensor (``curl_tpu_torch.CrypTensor``): the shares of all parties
+are already stacked, so no per-party trace is needed.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..encoder import FixedPointEncoder
+from .primitives import converters
+from .primitives.arithmetic import ArithmeticSharedTensor
+from .primitives.binary import BinarySharedTensor
+from .ptype import ptype as Ptype
+
+
+def _compare_bits() -> int:
+    """Comparison ring width (cfg.mpc.compare_bits, default 32)."""
+    from ..config import cfg
+
+    try:
+        width = int(cfg.mpc.compare_bits)
+    except (AttributeError, TypeError, ValueError):
+        return 32
+    return width if width in (16, 32) else 64
+
+
+def _pack_narrow(share, width):
+    """Pack 64/width consecutive elements' low ``width`` bits into one word
+    per party: (P, *shape) -> (P, ceil(n / lanes)). Shares of a mod-2^64
+    secret reduce to shares of it mod 2^width, and circuit.add keeps the
+    segments independent."""
+    lanes = 64 // width
+    P = share.shape[0]
+    orig_shape = tuple(share.shape[1:])
+    n = math.prod(orig_shape)
+    flat = share.reshape(P, n)
+    pad = (-n) % lanes
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(P, pad)], dim=1)
+    grp = flat.reshape(P, -1, lanes)
+    maskw = (1 << width) - 1
+    packed = grp[..., 0] & maskw
+    for lane in range(1, lanes):
+        packed = packed | ((grp[..., lane] & maskw) << (lane * width))
+    return packed, (orig_shape, n)
+
+
+def _unpack_lanes(word, width, meta, lane_bit):
+    """Bit ``lane_bit`` of each width-lane segment, back in element order."""
+    orig_shape, n = meta
+    lanes = 64 // width
+    cols = [(word >> (lane * width + lane_bit)) & 1 for lane in range(lanes)]
+    P = word.shape[0]
+    flat = torch.stack(cols, dim=-1).reshape(P, -1)[:, :n]
+    return flat.reshape((P,) + orig_shape)
+
+
+class MPCTensor:
+    __slots__ = ("_tensor", "ptype")
+
+    def __init__(self, tensor, ptype=Ptype.arithmetic):
+        self._tensor = tensor
+        self.ptype = ptype
+
+    # -- constructors ------------------------------------------------------
+    @classmethod
+    def encrypt(cls, value, src: int = 0, precision=None, ptype=Ptype.arithmetic):
+        if ptype == Ptype.arithmetic:
+            return cls(ArithmeticSharedTensor.encrypt(value, src, precision))
+        return cls(BinarySharedTensor.encrypt(value, src), Ptype.binary)
+
+    @classmethod
+    def rand(cls, *shape):
+        """Uniform [0, 1): random bits at fixed-point precision, converted
+        B2A (reference mpc.py:217-230)."""
+        enc = FixedPointEncoder()
+        bits = BinarySharedTensor.rand(shape, bits=enc.precision_bits)
+        bits.encoder = enc
+        return cls(bits, Ptype.binary).to_ptype(Ptype.arithmetic, bits=enc.precision_bits)
+
+    # -- basic structure ---------------------------------------------------
+    @property
+    def share(self):
+        return self._tensor.share
+
+    @property
+    def encoder(self):
+        return self._tensor.encoder
+
+    @property
+    def shape(self):
+        return self._tensor.shape
+
+    @property
+    def ndim(self):
+        return self._tensor.ndim
+
+    def size(self, dim=None):
+        return self.shape if dim is None else self.shape[dim]
+
+    def dim(self):
+        return self.ndim
+
+    def nelement(self):
+        return math.prod(self.shape)
+
+    def __repr__(self):
+        return f"MPCTensor({self._tensor}, ptype={self.ptype})"
+
+    # -- conversion --------------------------------------------------------
+    def to_ptype(self, ptype, **kwargs):
+        """A2B / B2A conversion (reference mpc.py:100-151)."""
+        if ptype == self.ptype:
+            return self
+        if ptype == Ptype.binary:
+            return MPCTensor(converters.A2B(self._tensor), Ptype.binary)
+        precision = kwargs.pop("precision", None)
+        return MPCTensor(
+            converters.B2A(self._tensor, precision=precision, **kwargs), Ptype.arithmetic
+        )
+
+    # -- reveal ------------------------------------------------------------
+    def reveal(self):
+        return self._tensor.reveal()
+
+    def get_plain_text(self):
+        return self._tensor.get_plain_text()
+
+    # -- comparisons core --------------------------------------------------
+    def _ltz(self):
+        """1 if value < 0 else 0 (reference mpc.py:233-242): A2B, sign bit,
+        B2A of one bit. With cfg.mpc.compare_bits = w < 64 (default 32),
+        64/w elements are packed per word first: exact whenever
+        |value| < 2^(w-1) ring units."""
+        precision = 0 if self.encoder.scale == 1 else None
+        width = _compare_bits()
+        if width >= 64:
+            b = converters.A2B(self._tensor).logical_rshift(63)
+        else:
+            packed, meta = _pack_narrow(self.share, width)
+            b = converters.A2B(ArithmeticSharedTensor(packed, self.encoder), width=width)
+            sign = _unpack_lanes(b.share, width, meta, lane_bit=width - 1)
+            b = BinarySharedTensor(sign, self.encoder)
+        arith = converters.B2A(b, precision=precision, bits=1)
+        return MPCTensor(ArithmeticSharedTensor(arith.share, FixedPointEncoder(0)))
+
+    # -- arithmetic passthroughs -------------------------------------------
+    def _wrap(self, result):
+        return MPCTensor(result, self.ptype)
+
+    def add(self, y):
+        return self._wrap(self._tensor.add(_unwrap(y)))
+
+    def sub(self, y):
+        return self._wrap(self._tensor.sub(_unwrap(y)))
+
+    def mul(self, y):
+        return self._wrap(self._tensor.mul(_unwrap(y)))
+
+    def matmul(self, y):
+        return self._wrap(self._tensor.matmul(_unwrap(y)))
+
+    def square(self):
+        return self._wrap(self._tensor.square())
+
+    def neg(self):
+        return self._wrap(self._tensor.neg())
+
+    def div(self, y):
+        """Division by a public value."""
+        return self._wrap(self._tensor.div(y))
+
+    def egk_trunc_pr(self, l, m):
+        return self._wrap(self._tensor.egk_trunc_pr(l, m))
+
+    def egk_truncmod_pr(self, l, m):
+        d, r = self._tensor.egk_truncmod_pr(l, m)
+        return self._wrap(d), self._wrap(r)
+
+    def evaluate_lut(self, lut):
+        return self._wrap(self._tensor.evaluate_lut(lut))
+
+    def evaluate_bior_lut(self, luts, scale, bias):
+        return self._wrap(self._tensor.evaluate_bior_lut(luts, _unwrap(scale), bias))
+
+    def evaluate_embed(self, embed):
+        return self._wrap(self._tensor.evaluate_embed(_unwrap(embed)))
+
+    # operators
+    __add__ = add
+    __radd__ = add
+    __sub__ = sub
+
+    __mul__ = mul
+    __rmul__ = mul
+    __matmul__ = matmul
+    __truediv__ = div
+    __neg__ = neg
+
+    def __getitem__(self, idx):
+        return self._wrap(self._tensor[idx])
+
+    def __lt__(self, y):  # lt is installed by functions.logic
+        return self.lt(y)
+
+    @staticmethod
+    def stack(tensors, axis=0):
+        inner = type(tensors[0]._tensor).stack([t._tensor for t in tensors], axis=axis)
+        return MPCTensor(inner, tensors[0].ptype)
+
+    @staticmethod
+    def cat(tensors, axis=0):
+        inner = type(tensors[0]._tensor).cat([t._tensor for t in tensors], axis=axis)
+        return MPCTensor(inner, tensors[0].ptype)
+
+
+def _unwrap(y):
+    return y._tensor if isinstance(y, MPCTensor) else y

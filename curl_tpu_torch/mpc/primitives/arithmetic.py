@@ -1,0 +1,246 @@
+"""Additive secret sharing over Z_2^64 with an explicit party axis.
+
+Counterpart of ``curl_tpu/mpc/primitives/arithmetic.py``. ``share`` is a
+``(P, *shape)`` int64 tensor holding every party's share; ``shape`` is the
+per-party shape, as in the JAX package's per-party view. ``reveal`` sums
+over the party axis (``comm.all_sum``). Semantics follow the JAX package:
+PRZS sharing, public/private dispatch, the post-multiply rescale by EGK
+probabilistic truncation or 2PC local truncation. The fused TPU kernels of
+the JAX package (``fused_mul``, ``fused_trunc``) are off under the shipped
+config; these products take the composable path, as they do there.
+"""
+
+from __future__ import annotations
+
+import math
+import numbers
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ... import comm
+from ... import random as rng
+from ... import ring
+from ...config import cfg
+from ...encoder import FixedPointEncoder
+from .party import lift, rank0
+
+
+def _is_public(value) -> bool:
+    return isinstance(value, (numbers.Number, np.ndarray, torch.Tensor, list, tuple))
+
+
+def _get_protocol():
+    if cfg.mpc.protocol != "beaver":
+        raise NotImplementedError(f"protocol {cfg.mpc.protocol!r} is not ported yet")
+    from . import beaver
+
+    return beaver
+
+
+def _public_tensor(value):
+    """Public value -> tensor on the session device (floats as float64)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(comm.get_device())
+    arr = np.asarray(value)
+    if arr.dtype.kind == "f":
+        arr = arr.astype(np.float64)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(comm.get_device())
+
+
+def _encode(encoder, y):
+    """Encoded public value: Python int for scalars, else an int64 tensor."""
+    if isinstance(y, numbers.Number):
+        return encoder.encode(y)
+    return encoder.encode(_public_tensor(y))
+
+
+class ArithmeticSharedTensor:
+    __slots__ = ("share", "encoder")
+
+    def __init__(self, share: torch.Tensor, encoder: FixedPointEncoder):
+        self.share = share
+        self.encoder = encoder
+
+    # -- constructors ------------------------------------------------------
+    @classmethod
+    def encrypt(cls, value, src: int = 0, precision: Optional[int] = None):
+        """Share a plaintext provided by party ``src``: one Philox share pass."""
+        enc = FixedPointEncoder(precision)
+        value = _public_tensor(value)
+        if not value.dtype.is_floating_point and precision != 0:
+            value = value.to(torch.float64)
+        encoded = torch.as_tensor(enc.encode(value), dtype=torch.int64, device=comm.get_device())
+        return cls(rng.przs_share(encoded, src), enc)
+
+    @classmethod
+    def from_shares(cls, share, precision: Optional[int] = None):
+        return cls(ring.to_ring(share), FixedPointEncoder(precision))
+
+    # -- structure ---------------------------------------------------------
+    @property
+    def shape(self):
+        return tuple(self.share.shape[1:])
+
+    @property
+    def ndim(self):
+        return self.share.dim() - 1
+
+    def with_share(self, share) -> "ArithmeticSharedTensor":
+        return ArithmeticSharedTensor(share, self.encoder)
+
+    def __repr__(self):
+        return f"ArithmeticSharedTensor(shape={self.shape}, scale={self.encoder.scale})"
+
+    # -- reveal / decode ---------------------------------------------------
+    def reveal(self) -> torch.Tensor:
+        """Ring reconstruction: one counted reveal round."""
+        return comm.all_sum(self.share)
+
+    def get_plain_text(self) -> np.ndarray:
+        """Decode on the host (no protocol round, like the JAX package's
+        eager CrypTensor.get_plain_text)."""
+        return self.encoder.decode(self.share.sum(dim=0))
+
+    # -- public/private arithmetic dispatch --------------------------------
+    def _add_sub(self, y, op: str):
+        sign = 1 if op == "add" else -1
+        if _is_public(y):
+            # party 0 adds the encoded public value (arithmetic.py:364-368)
+            encoded = _encode(self.encoder, y)
+            if isinstance(encoded, int):
+                return self.with_share(self.share + rank0(ring.scalar(sign * encoded), self.shape))
+            nd = max(self.ndim, encoded.dim())
+            return self.with_share(lift(self.share, nd) + sign * rank0(encoded, ndim=nd))
+        a, b = self, y
+        if a.encoder.scale > b.encoder.scale:
+            b = b.encode_as(a)
+        elif a.encoder.scale < b.encoder.scale:
+            a = a.encode_as(b)
+        nd = max(a.ndim, b.ndim)
+        share = lift(a.share, nd) + sign * lift(b.share, nd)
+        return ArithmeticSharedTensor(share, a.encoder)
+
+    def add(self, y):
+        return self._add_sub(y, "add")
+
+    def sub(self, y):
+        return self._add_sub(y, "sub")
+
+    def neg(self):
+        return self.with_share(-self.share)
+
+    def _rescale_product(self, result: "ArithmeticSharedTensor", y_scale: int):
+        """Post-multiplication rescale (arithmetic.py:389-408)."""
+        if self.encoder.scale > 1 and y_scale > 1:
+            if cfg.encoder.trunc_method.prod == "crypten":
+                return result.div_trunc(result.encoder.scale)
+            return result.egk_trunc_pr(62, result.encoder.precision_bits)
+        if self.encoder.scale > 1:
+            return ArithmeticSharedTensor(result.share, self.encoder)
+        return ArithmeticSharedTensor(
+            result.share, FixedPointEncoder(int(math.log2(max(y_scale, 1))))
+        )
+
+    def mul(self, y):
+        if isinstance(y, numbers.Integral) and not isinstance(y, bool):
+            return self.with_share(self.share * ring.scalar(int(y)))
+        if _is_public(y):
+            encoded = _encode(self.encoder, y)
+            if isinstance(encoded, int):
+                out = self.with_share(self.share * encoded)
+            else:
+                nd = max(self.ndim, encoded.dim())
+                out = self.with_share(lift(self.share, nd) * encoded)
+            return self._rescale_product(out, self.encoder.scale)
+        out = _get_protocol().mul(self, y)
+        return self._rescale_product(out, y.encoder.scale)
+
+    def matmul(self, y):
+        if _is_public(y):
+            encoded = _encode(self.encoder, y)
+            nd = max(self.ndim, encoded.dim())
+            out = self.with_share(ring.matmul(lift(self.share, nd), encoded))
+            return self._rescale_product(out, self.encoder.scale)
+        out = _get_protocol().matmul(self, y)
+        return self._rescale_product(out, y.encoder.scale)
+
+    def square(self):
+        out = _get_protocol().square(self)
+        return out.div_trunc(self.encoder.scale)
+
+    # -- division / truncation --------------------------------------------
+    def div_trunc(self, divisor: int):
+        """Divide by a public positive integer (arithmetic.py:452-481): 2PC
+        local signed truncation of each share; more parties correct the
+        wraps with the ``truncate`` protocol."""
+        if comm.get_world_size() > 2:
+            return _get_protocol().truncate(self, int(divisor))
+        return self.with_share(ring.trunc_div_signed(self.share, int(divisor)))
+
+    def div(self, y):
+        if isinstance(y, numbers.Real) and not isinstance(y, numbers.Integral):
+            if float(y).is_integer():
+                y = int(y)
+        if isinstance(y, numbers.Integral):
+            return self.div_trunc(int(y))
+        if isinstance(y, numbers.Real):
+            return self.mul(1.0 / y)
+        return self.mul(1.0 / _public_tensor(y).to(torch.float64))
+
+    def egk_trunc_pr(self, l: int, m: int):
+        """EGK+20 probabilistic truncation by m bits (arithmetic.py:508)."""
+        if m == 0:
+            return self
+        return ArithmeticSharedTensor(
+            _get_protocol().egk_trunc_pr(self, l, m).share, self.encoder
+        )
+
+    def egk_truncmod_pr(self, l: int, m: int):
+        """(truncation, remainder) pair (arithmetic.py:515-519)."""
+        divisor = self.egk_trunc_pr(l, m)
+        remainder = self.share - divisor.share * ring.scalar(1 << m)
+        return divisor, ArithmeticSharedTensor(remainder, self.encoder)
+
+    # -- LUT protocol entry points ----------------------------------------
+    def evaluate_lut(self, lut):
+        return ArithmeticSharedTensor(
+            _get_protocol().evaluate_lut(self, lut).share, self.encoder
+        )
+
+    def evaluate_bior_lut(self, luts, scale: "ArithmeticSharedTensor", bias: int):
+        return ArithmeticSharedTensor(
+            _get_protocol().evaluate_bior_lut(self, luts, scale, bias).share, self.encoder
+        )
+
+    def evaluate_embed(self, embed: "ArithmeticSharedTensor"):
+        out = _get_protocol().evaluate_embed(self, embed)
+        return ArithmeticSharedTensor(out.share, embed.encoder)
+
+    # -- scale management --------------------------------------------------
+    def encode_to(self, new_encoder: FixedPointEncoder):
+        if self.encoder.scale == new_encoder.scale:
+            return ArithmeticSharedTensor(self.share, new_encoder)
+        if self.encoder.scale < new_encoder.scale:
+            factor = new_encoder.scale // self.encoder.scale
+            return ArithmeticSharedTensor(self.share * ring.scalar(factor), new_encoder)
+        factor = self.encoder.scale // new_encoder.scale
+        return ArithmeticSharedTensor(self.div_trunc(factor).share, new_encoder)
+
+    def encode_as(self, other: "ArithmeticSharedTensor"):
+        return self.encode_to(other.encoder)
+
+    @staticmethod
+    def stack(tensors, axis=0):
+        axis = axis + 1 if axis >= 0 else axis
+        return ArithmeticSharedTensor(
+            torch.stack([t.share for t in tensors], dim=axis), tensors[0].encoder
+        )
+
+    @staticmethod
+    def cat(tensors, axis=0):
+        axis = axis + 1 if axis >= 0 else axis
+        return ArithmeticSharedTensor(
+            torch.cat([t.share for t in tensors], dim=axis), tensors[0].encoder
+        )

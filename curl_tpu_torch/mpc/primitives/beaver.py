@@ -1,0 +1,233 @@
+"""Beaver-triple protocols and Curl's LUT protocols, party axis explicit.
+
+Counterpart of ``curl_tpu/mpc/primitives/beaver.py``; every protocol costs
+the same rounds and bytes as there:
+
+  mul/matmul        1 batched reveal
+  square            1 reveal
+  truncate          1 gather + the dealer's scatter (more than 2 parties)
+  egk_trunc_pr      1 reveal (EGK+20 Fig. 10)
+  evaluate_lut      1 reveal, any table size
+  evaluate_bior_lut 1 reveal + 1 Beaver mul + 1 EGK trunc
+  evaluate_embed    1 reveal + 1 Beaver matmul
+  AND               1 batched reveal
+  B2A_single_bit    1 reveal
+
+Revealed values (epsilon, delta, the LUT shift) are public tensors without
+the party axis; dealer plaintexts (a, b, c = a @ b) are too, and are
+computed once. The LUTs and the embedding take the JAX package's TFP
+gather forms (its ``lut_fastpath``/``fused_onehot`` defaults). Not ported in
+this slice: the reference's tuple one-hot forms (and with them the private
+embedding of more than two parties), the Beaver-masked operand reuse
+(MaskedArithmetic), the vocab-chunked embedding, active security.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ... import comm
+from ... import random as rng
+from ... import ring
+from ...config import cfg
+from ...encoder import FixedPointEncoder
+from .arithmetic import ArithmeticSharedTensor
+from .party import lift, rank0
+
+
+def _provider():
+    from .. import get_default_provider
+
+    return get_default_provider()
+
+
+def _raw(x: ArithmeticSharedTensor) -> ArithmeticSharedTensor:
+    """Scale-1 view (the IgnoreEncodings context of the reference)."""
+    return ArithmeticSharedTensor(x.share, FixedPointEncoder(0))
+
+
+def _beaver_protocol(op, x, y):
+    """z = c + eps*b + x*delta with one batched reveal (x = a + eps, so
+    this equals the reference's c + eps*b + a*delta + eps*delta)."""
+    if cfg.mpc.active_security:
+        raise NotImplementedError("active security is not ported yet")
+    a, b, c = _provider().generate_additive_triple(x.shape, y.shape, op)
+    epsilon, delta = comm.all_sum([x.share - a.share, y.share - b.share])
+    if op == "matmul":
+        if x.ndim < 2 or y.ndim < 2:
+            raise NotImplementedError("private matmul of a 1-D operand is not ported yet")
+        nd = max(x.ndim, y.ndim)
+        # both products in one ring-mm launch (one accumulator, one write)
+        z = c.share + ring.matmul_acc(
+            [(epsilon, lift(b.share, nd)), (lift(x.share, nd), delta)]
+        )
+        return ArithmeticSharedTensor(z, x.encoder)
+    nd = len(torch.broadcast_shapes(x.shape, y.shape))
+    z = c.share + epsilon * lift(b.share, nd) + lift(x.share, nd) * delta
+    return ArithmeticSharedTensor(z, x.encoder)
+
+
+_RING_OPS = {
+    "mul": lambda a, b: a * b,
+    "matmul": ring.matmul,
+}
+
+
+def mul(x, y):
+    return _beaver_protocol("mul", x, y)
+
+
+def matmul(x, y):
+    return _beaver_protocol("matmul", x, y)
+
+
+def square(x):
+    """z = r2 + 2*eps*r + eps^2, one reveal (beaver.py:114-127)."""
+    r, r2 = _provider().square(x.shape)
+    epsilon = comm.all_sum(x.share - r.share)
+    z = r2.share + 2 * r.share * epsilon + rank0(epsilon * epsilon)
+    return ArithmeticSharedTensor(z, x.encoder)
+
+
+def wraps(x):
+    """Wrap-count protocol (beaver.py:273): [theta_x] = theta_z +
+    [beta_xr] - [theta_r] (the eta term dropped whp)."""
+    r, theta_r = _provider().wrap_rng(x.shape)
+    beta_xr = ring.count_wraps(torch.stack([x.share, r.share]))
+    theta_z = ring.count_wraps(comm.all_gather(x.share + r.share))
+    return ArithmeticSharedTensor(beta_xr - theta_r.share + rank0(theta_z), FixedPointEncoder(0))
+
+
+def truncate(x, y: int):
+    """Public-divisor truncation with wrap correction for more than two
+    parties (beaver.py:292)."""
+    wrap_count = wraps(x)
+    share = ring.trunc_div_signed(x.share, y)
+    correction = wrap_count.share * ring.scalar(4 * ((1 << 62) // y))
+    return ArithmeticSharedTensor(share - correction, x.encoder)
+
+
+def egk_trunc_pr(x, l: int, m: int):
+    """EGK+20 Fig. 10 probabilistic truncation, one reveal (beaver.py:301)."""
+    k = 64
+    r, r_p, b = _provider().egk_trunc_pr_rng(x.shape, l, m)
+    two_to_l = ring.scalar(1 << l)
+
+    # Step 1: mask and reveal c
+    a_p = x.share + rank0(ring.scalar(1 << (l - 1)), x.shape)
+    rpp = ring.scalar(1 << m) * r.share + r_p.share
+    enc_c = ring.scalar(1 << (k - l - 1)) * (a_p + two_to_l * b.share + rpp)
+    c = comm.all_sum(enc_c)
+    c_p = ring.shift_right_arith(c, k - l - 1)
+
+    # Step 2: strip the masking bit: v = b + c_pl - 2 b c_pl (c_pl public)
+    c_pl = ring.shift_right_arith(c_p, l) & 1
+    v = b.share + rank0(c_pl) - 2 * b.share * c_pl
+
+    # Step 3: reconstruct the truncation
+    c_p_mod = torch.remainder(c_p, two_to_l)
+    pub_tail = ring.signed_floordiv_pow2(c_p_mod, m)
+    y_share = (
+        ring.scalar(1 << (l - m)) * v
+        - r.share
+        - rank0(ring.scalar(1 << (l - m - 1)), x.shape)
+        + rank0(pub_tail)
+    )
+    return ArithmeticSharedTensor(y_share, x.encoder)
+
+
+# ---------------------------------------------------------------------------
+# LUT protocols — Curl's signature primitives
+# ---------------------------------------------------------------------------
+
+def _rotated_onehot_fast(x_flat, size: int):
+    """Share of onehot(x mod size), built as fresh PRZS plus party 0's
+    one-hot of (r + shift) mod size = x (beaver.py:388-420): one revealed
+    value z = x - r, the same rounds and share distribution as the
+    reference's tuple one-hot, without the (N, size) rotation."""
+    r = rng.random_ring(x_flat.shape, rng.dealer_stream())
+    r_clear = torch.remainder(r, size)
+    r_share = rng.przs_share(r_clear)
+    z = comm.all_sum(x_flat.share - r_share)
+    x_idx = torch.remainder(r_clear + torch.remainder(z, size), size)
+    grid = torch.arange(size, dtype=torch.int64, device=x_idx.device)
+    onehot = (x_idx[:, None] == grid[None, :]).to(torch.int64)
+    return rng.przs_share(onehot)
+
+
+def _lut_gather_fast(x_flat, luts_rows, size: int):
+    """[T[x mod L] for T in luts_rows] in gather form: output-shaped PRZS
+    masks plus, on party 0 only, the public table at (r + shift) mod L."""
+    r_clear, r_share, masks = _provider().generate_lut_masks(
+        x_flat.shape, size, len(luts_rows)
+    )
+    z = comm.all_sum(x_flat.share - r_share.share)
+    idx = torch.remainder(r_clear + torch.remainder(z, size), size)
+    return [masks[i] + rank0(row[idx]) for i, row in enumerate(luts_rows)]
+
+
+def _flat(x):
+    return x.with_share(x.share.reshape(x.share.shape[0], -1))
+
+
+def evaluate_lut(x, lut):
+    """result[n] = T[x_n mod L] with one reveal (beaver.py:552)."""
+    lut = ring.to_ring(lut, comm.get_device())
+    (result,) = _lut_gather_fast(_flat(x), [lut], lut.shape[0])
+    return ArithmeticSharedTensor(result.reshape(x.share.shape), x.encoder)
+
+
+def evaluate_bior_lut(x, luts, scale, bias: int):
+    """Two-bank LUT + private linear interpolation (beaver.py:566):
+    (lut1 - lut0) * scale + 2^bias * lut0, then EGK-truncate by 2*bias."""
+    luts = ring.to_ring(luts, comm.get_device())  # (2, L)
+    lut0, lut1 = _lut_gather_fast(_flat(x), [luts[0], luts[1]], luts.shape[1])
+    scaling = _raw(_flat(scale))
+    prod = mul(ArithmeticSharedTensor(lut1 - lut0, FixedPointEncoder(0)), scaling)
+    combined = prod.share + ring.scalar(1 << bias) * lut0
+    out = egk_trunc_pr(ArithmeticSharedTensor(combined, FixedPointEncoder(0)), 62, 2 * bias)
+    return ArithmeticSharedTensor(out.share.reshape(x.share.shape), x.encoder)
+
+
+def evaluate_embed(x, embed):
+    """Private embedding lookup: the secret one-hot of x times the secret
+    table, one Beaver matmul (beaver.py:590)."""
+    if comm.get_world_size() != 2:
+        raise NotImplementedError("the private embedding of more than two parties is not ported yet")
+    size, dim = embed.shape
+    rotated = _rotated_onehot_fast(_flat(x), size)
+    lookup = matmul(
+        ArithmeticSharedTensor(rotated, FixedPointEncoder(0)), _raw(embed)
+    )
+    out_shape = x.share.shape + (dim,)
+    return ArithmeticSharedTensor(lookup.share.reshape(out_shape), FixedPointEncoder(0))
+
+
+# ---------------------------------------------------------------------------
+# Binary Beaver + share conversion helpers
+# ---------------------------------------------------------------------------
+
+def AND(x, y):
+    """Binary Beaver protocol, one batched reveal (beaver.py:699)."""
+    from .binary import BinarySharedTensor
+
+    shape = torch.broadcast_shapes(x.shape, y.shape)
+    full = (x.share.shape[0],) + tuple(shape)
+    xs = lift(x.share, len(shape)).expand(full)
+    ys = lift(y.share, len(shape)).expand(full)
+    a, b, c = _provider().generate_binary_triple(shape, shape)
+    epsilon, delta = comm.all_xor([xs ^ a.share, ys ^ b.share])
+    # z = c ^ (eps & b) ^ (x & delta): x = a ^ eps, no party-0 term
+    z = (b.share & epsilon) ^ (xs & delta) ^ c.share
+    return BinarySharedTensor(z, x.encoder)
+
+
+def B2A_single_bit(xB):
+    """Convert single-bit binary shares to arithmetic (beaver.py:715)."""
+    if comm.get_world_size() < 2:
+        return ArithmeticSharedTensor(xB.share, FixedPointEncoder(0))
+    rA, rB = _provider().B2A_rng(xB.shape)
+    z = comm.all_xor(xB.share ^ rB.share)
+    # rA * (1 - 2z) + z with z public
+    share = rA.share * (1 - 2 * z) + rank0(z)
+    return ArithmeticSharedTensor(share, FixedPointEncoder(0))

@@ -1,0 +1,151 @@
+"""Correlated random streams for the MPC parties, from one Philox kernel.
+
+Counterpart of ``curl_tpu/random.py``. Every stream is a 64-bit Philox seed:
+
+  ring[i]   shared by parties i and i + 1: party p's "next" stream is ring[p]
+            and its "prev" stream ring[p - 1], so next[p] == prev[p + 1] and
+            PRZS telescopes to zero over the parties;
+  local[p]  private to party p;
+  global    shared by all parties (public randomness);
+  dealer    the TFP dealer's stream for tuple plaintexts.
+
+A draw is (stream seed, draw counter, element index) -> 64 bits: the counter
+advances once per draw and restarts in ``init`` (``reset_count``), so a
+seeded session replays the same randomness whatever ran before it. Dealer
+and global draws carry no party axis (computed once); per-party draws come
+back as (P, ...). On a CUDA device every bulk draw and share is one launch
+of the Philox kernel (``kernels/philox.py``); on the CPU its plain version.
+
+The streams will never match the JAX package's threefry or the TPU's
+hardware PRNG: compare decoded values and invariants, never shares.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+
+import torch
+
+from . import comm
+from .kernels.philox import philox
+
+_M64 = (1 << 64) - 1
+
+_counter = 0
+_counter_lock = threading.Lock()
+_keys = None
+
+
+def _next_count() -> int:
+    global _counter
+    with _counter_lock:
+        c = _counter
+        _counter += 1
+        return c
+
+
+def reset_count():
+    """Restart the draw counter (called by ``curl_tpu_torch.init``)."""
+    global _counter
+    with _counter_lock:
+        _counter = 0
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    z = x
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def make_party_keys(seed: int, world_size: int) -> dict:
+    """Stream seeds with the ring-correlation invariant next[p] == prev[p+1]."""
+    def derive(tag: int, i: int = 0) -> int:
+        return _splitmix64(_splitmix64(_splitmix64(seed & _M64) ^ tag) ^ i)
+
+    ring = [derive(1, i) for i in range(world_size)]
+    return {
+        "next": ring,
+        "prev": [ring[(p - 1) % world_size] for p in range(world_size)],
+        "local": [derive(2, i) for i in range(world_size)],
+        "global": [derive(3)],
+        "dealer": [derive(4)],
+    }
+
+
+def set_keys(keys: dict):
+    global _keys
+    _keys = keys
+
+
+def current_keys() -> dict:
+    if _keys is None:
+        raise RuntimeError("curl_tpu_torch.init() must be called first")
+    return _keys
+
+
+# party-invariant streams: one row, no party axis
+_SHARED = ("global", "dealer")
+
+
+def dealer_stream() -> str:
+    """Stream for tuple plaintexts (Beaver a/b, square r, LUT r, EGK
+    randomness): drawn once, without a party axis, like the JAX package's
+    party-invariant dealer stream under the simulated-party runtime."""
+    return "dealer"
+
+
+def _numel(shape) -> int:
+    return math.prod(shape) if shape else 1
+
+
+def random_kbit(shape, bitlength: int = 64, generator: str = "local"):
+    """Uniform k-bit values in [0, 2^bitlength): (shape) for a shared stream,
+    (P,) + shape for a per-party one."""
+    shape = tuple(shape)
+    rows = philox(
+        "draw", current_keys()[generator], _next_count(), _numel(shape),
+        kbits=min(bitlength, 64), device=comm.get_device(),
+    )
+    if generator in _SHARED:
+        return rows[0].reshape(shape)
+    return rows.reshape((rows.shape[0],) + shape)
+
+
+def random_ring(shape, generator: str = "local"):
+    """Uniform ring element."""
+    return random_kbit(shape, 64, generator)
+
+
+def przs_arithmetic(shape):
+    """Pseudo-random sharing of zero, (P,) + shape: prev-stream minus
+    next-stream draw, one Philox launch for all parties."""
+    shape = tuple(shape)
+    ring = current_keys()["next"]
+    out = philox("przs", ring, _next_count(), _numel(shape), device=comm.get_device())
+    return out.reshape((len(ring),) + shape)
+
+
+def przs_share(value: torch.Tensor, src: int = 0, per_party: bool = False):
+    """Dealer sharing of a plaintext: PRZS plus ``value`` on party ``src``.
+
+    ``value`` is party-invariant (shape S) by default, or per party
+    ((P,) + S, ``per_party=True``) where only party src's row enters the
+    share sum. One fused Philox launch writes only the (P,) + S share."""
+    ring = current_keys()["next"]
+    P = len(ring)
+    shape = tuple(value.shape[1:] if per_party else value.shape)
+    flat = value.reshape((P, -1) if per_party else (-1,)).contiguous()
+    out = philox(
+        "share_lane" if per_party else "share", ring, _next_count(), _numel(shape),
+        plain=flat, src=src,
+    )
+    return out.reshape((P,) + shape)
+
+
+def przs_binary(shape, bits: int = 64):
+    """XOR sharing of zero, (P,) + shape: prev ^ next ring streams."""
+    ring = random_kbit(shape, bits, "next")
+    return torch.roll(ring, 1, dims=0) ^ ring
