@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of curl_tpu_torch on one CUDA card: kernels, then the private
-2-party GPT-2 forward.
+2-party GPT-2 forward under the shipped configuration and under bench.py's
+kernel configuration.
 
     python3 chip_smoke.py
 
@@ -8,10 +9,14 @@ Phases, one line each (any failure raises and the run exits non-zero
 without the final line):
 
   1. device   the card's name and power limit (nvidia-smi); raises without CUDA
-  2. build    both kernels from curl_tpu_torch/csrc with nvcc for sm_90a
+  2. build    every kernel from curl_tpu_torch/csrc with nvcc for sm_90a,
+              one nvcc per source, all started together
   3. kernels  ring_mm and philox against their plain torch versions at the
               main path's shapes and layouts, bit for bit; philox's time
-              and bound
+              and bound, 2-D and 1-D
+  3b. fused   fused_mul (each op and truncation the path uses), ltz and
+              max_step against their plain versions, bit for bit, at the
+              path's sizes and an odd one; time, plain time and bound
   4. forward  GPT-2 (768 wide, 12 heads, 12 blocks, vocab 50257) under
               configs/default.yaml, random weights from a numpy seed,
               encrypted by party 0; a private forward on 64 token ids
@@ -20,9 +25,17 @@ without the final line):
               against a float64 plaintext forward of the same weights,
               beside a planted fault (one block left out) that must fail
               the same bound
-  5. path     every operand layout the forward passed to ring_mm, on fresh
-              operands of the same shapes and strides: bit for bit against
-              plain, timed, and summed over the forward's launches
+  4b. bench   the same model and tokens under bench.py's kernel
+              configuration (the scan_reduction max, and mpc.fused_mul,
+              fused_trunc, fused_compare, fused_max_step = "cuda"): the
+              same readings and checks, launches of every kernel and op,
+              the device busy share; then the same forward with the fused
+              knobs off, whose rounds and bytes must be equal
+  5. path     every launch signature (shapes, strides, op) the phase 4b
+              forward passed to ring_mm, philox, fused_mul, ltz and
+              max_step, on fresh operands of the same layout: bit for bit
+              against plain, timed, and summed over the forward's launches
+              into each kernel's milliseconds a forward
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -61,6 +74,29 @@ HIDDEN_STATE_SCALE_FREE_L2 = 0.15
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+# The fused protocol kernels' integer work, counted in 32-bit operations at
+# the 32-bit CUDA-core peak (the data sheet's 67 T/s, float32 outside the
+# tensor cores; Hopper issues 32-bit integer operations at no higher rate).
+# Only the Philox rounds and the 64-bit products are counted, so the bound
+# by operations is a lower one.
+INT32_OPS_PER_S = 67e12
+PHILOX_OPS = 98  # Philox4x32-10: 10 rounds of 2 mul.lo, 2 mul.hi, 4 xor; 9 key bumps of 2 adds
+MUL64_OPS = 3    # a 64-bit product mod 2^64: one widening 32-bit multiply, two cross products
+
+# bench.py's kernel configuration (bench.py:136-174): the scan_reduction max
+# and the four fused protocol knobs, which take "cuda" in the port where the
+# JAX package takes "pallas_tpu"
+FUSED_KNOBS = ("fused_mul", "fused_trunc", "fused_compare", "fused_max_step")
+BENCH_CONFIG = {"functions.max_method": "scan_reduction",
+                **{f"mpc.{knob}": "cuda" for knob in FUSED_KNOBS}}
+FUSED_OFF = {"functions.max_method": "scan_reduction"}
+FUSED_KEY = 0x5EED_F00D_0BAD_CAFE  # the fused checks' session key on fresh operands
+# phase 3b: the path's element counts, and an odd one
+FUSED_SIZES = ((196_608, "GELU, 64 x 3072"), (3_216_448, "vocab softmax, 64 x 50257"),
+               (49_152, "LayerNorm 64 x 768, attention 12 x 64 x 64"),
+               (131_072, "vocab fold step, 64 x 2048"), (100_003, "odd"))
+FUSED_VARIANTS = (("mul", "egk", 16), ("square", "crypten", 16), ("trunc", "egk", 12),
+                  ("mul", "none", 0))
 
 
 def log(msg):
@@ -75,13 +111,35 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
+_spin_cycles_per_ms = []
+
+
+def _spin(ms):
+    """Hold the stream for about ``ms`` milliseconds with a spin kernel."""
+    if not _spin_cycles_per_ms:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        stop.record()
+        torch.cuda.synchronize()
+        _spin_cycles_per_ms.append(10 ** 7 / start.elapsed_time(stop))
+    torch.cuda._sleep(int(ms * _spin_cycles_per_ms[0]))
+
+
 def cuda_ms(fn, reps):
     """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA events),
-    after one warm-up run."""
+    after one warm-up run. The runs are queued behind a spin kernel that
+    lasts longer than the host takes to queue them, so the events time the
+    device's work, not the gaps of the host's launch overhead."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    _spin(1.5 * reps * host_ms + 1.0)
     start.record()
     for _ in range(reps):
         fn()
@@ -93,6 +151,14 @@ def cuda_ms(fn, reps):
 def rand_i64(gen, shape, dev):
     return torch.randint(-(2 ** 63), 2 ** 63 - 1, shape, generator=gen, dtype=torch.int64,
                          device="cpu").to(dev)
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time for ``nbytes`` moved
+    once and ``ops`` 32-bit integer operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +218,6 @@ def check_philox(dev, gen):
     from curl_tpu_torch.kernels import philox
 
     ring_keys = [0x0123456789ABCDEF, 0x0FEDCBA987654321]
-    entry = None
     for n in (768 * 50257, 1_000_003):
         plain_n = rand_i64(gen, (n,), dev)
         plain_lane = rand_i64(gen, (2, n), dev)
@@ -173,20 +238,103 @@ def check_philox(dev, gen):
                 raise AssertionError("philox przs rows do not sum to zero")
         log(f"[kernels] philox draw/przs/share/share_lane n={n}: bit-exact vs plain, "
             "PRZS sums to zero")
-        if entry is None:
+        if n == 768 * 50257:  # the weight sharing of the LM head, 2-D on the TPU
             kw = dict(keys=ring_keys, plain=plain_n, src=0)
             ms = cuda_ms(lambda: philox.philox("share", counter=5, n=n, **kw), 10)
             plain_ms = cuda_ms(lambda: philox.plain_philox("share", counter=5, n=n, **kw), 2)
-            nbytes = (2 * n + n) * 8  # (P, n) written once, plain read once
-            entry = dict(
-                name="philox", route="cuda", source="curl_tpu_torch/csrc/philox.cu",
-                replaces="curl_tpu/ops/pallas_przs.py:218", shape=f"share (2, {n})",
-                max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
-            )
+            b, by = bound((2 * n + n) * 8, 2 * (n + 1) // 2 * PHILOX_OPS)
             log(f"[kernels] philox share (2, {n}): {ms:.3f} ms (plain {plain_ms:.3f} ms, "
-                f"bound {entry['bound_ms']:.4f} ms by bytes)")
-    return [entry]
+                f"bound {b:.4f} ms by {by})")
+    # the 1-D form (pallas_przs.py:60 on the TPU) at the GELU's element count
+    n = 64 * 3072
+    plain_n = rand_i64(gen, (n,), dev)
+    for mode, kw in (("draw", dict(keys=[ring_keys[0]])),
+                     ("share", dict(keys=ring_keys, plain=plain_n, src=0))):
+        kw = dict(kw, counter=6, n=n, device=dev)
+        got = philox.philox(mode, **kw)
+        if not torch.equal(got, philox.plain_philox(mode, **kw)):
+            raise AssertionError(f"philox 1-D {mode} n={n}: kernel != plain")
+        ms = cuda_ms(lambda: philox.philox(mode, **kw), 20)
+        plain_ms = cuda_ms(lambda: philox.plain_philox(mode, **kw), 3)
+        b, by = bound(got.numel() * 8 + (n * 8 if mode == "share" else 0),
+                      len(kw["keys"]) * (n + 1) // 2 * PHILOX_OPS)
+        log(f"[kernels] philox 1-D {mode} ({got.shape[0]}, {n}): bit-exact vs plain; {ms:.4f} ms "
+            f"(plain {plain_ms:.3f} ms, bound {b:.5f} ms by {by})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the fused protocol kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def fused_name(spec):
+    if spec["kind"] == "fused_mul":
+        return f"fused_mul {spec['op']}+{spec['trunc']} m={spec['m']}"
+    return spec["kind"]
+
+
+def fused_spec(kind, sig):
+    """A launch of fused_mul, ltz or max_step as a spec: its op, truncation
+    and bits (fused_mul), and its operands' (shape, strides)."""
+    if kind == "fused_mul":
+        return dict(kind=kind, op=sig[0], trunc=sig[1], m=sig[2], operands=list(sig[3:]))
+    return dict(kind=kind, operands=list(sig))
+
+
+def fused_run(spec, ops, count, plain=False):
+    """One launch of the spec's kernel (or its plain version) on ``ops``."""
+    from curl_tpu_torch.kernels import fused_mul, max_step
+
+    if spec["kind"] == "fused_mul":
+        fn = fused_mul.plain if plain else fused_mul.launch
+        y = ops[1] if len(ops) > 1 else None
+        return fn(spec["op"], spec["trunc"], spec["m"], ops[0], y, FUSED_KEY, count)
+    fn = getattr(max_step, ("plain_" if plain else "launch_") + spec["kind"])
+    return fn(*ops, FUSED_KEY, count)
+
+
+def fused_work(spec):
+    """(bytes, 32-bit operations) one launch's function needs: each input
+    element read once (a broadcast operand at its own size) and both result
+    shares written once; ceil(k/2) Philox calls for each draw slot over k
+    elements or words (one call gives two 64-bit draws) and the protocol's
+    64-bit products."""
+    from curl_tpu_torch.kernels import fused_mul, max_step
+
+    shapes = [shape for shape, _ in spec["operands"]]
+    n = math.prod(torch.broadcast_shapes(*[tuple(s[1:]) for s in shapes]))
+    nbytes = (sum(_distinct_numel(shape, st) for shape, st in spec["operands"]) + 2 * n) * 8
+    if spec["kind"] == "fused_mul":
+        size = {"x": math.prod(shapes[0][1:]), "y": math.prod(shapes[-1][1:]), "out": n}
+        calls = sum((size[s] + 1) // 2 for s in fused_mul.slot_spaces(spec["op"], spec["trunc"]))
+        mul64 = {"mul": 5, "square": 4, "trunc": 0}[spec["op"]] * n
+    else:
+        calls = max_step.DRAWS[spec["kind"]] * (((n + 1) // 2 + 1) // 2)
+        mul64 = 5 * n if spec["kind"] == "max_step" else 0
+    return nbytes, calls * PHILOX_OPS + mul64 * MUL64_OPS
+
+
+def check_fused(dev, gen):
+    """Each fused kernel, at each variant the path uses, bit for bit against
+    its plain version on fresh contiguous (2, n) operands; timed."""
+    count = 0
+    for n, label in FUSED_SIZES:
+        flat = ((2, n), (n, 1))
+        specs = [dict(kind="fused_mul", op=op, trunc=tr, m=m, operands=[flat] * (1 + (op == "mul")))
+                 for op, tr, m in FUSED_VARIANTS]
+        specs += [dict(kind="ltz", operands=[flat]), dict(kind="max_step", operands=[flat] * 2)]
+        for spec in specs:
+            count += 1
+            ops = [_strided_i64(gen, shape, st, dev) for shape, st in spec["operands"]]
+            got = fused_run(spec, ops, count)
+            if not torch.equal(got, fused_run(spec, ops, count, plain=True)):
+                raise AssertionError(f"{fused_name(spec)} n={n}: kernel != plain")
+            ms = cuda_ms(lambda: fused_run(spec, ops, count), 10)
+            plain_ms = cuda_ms(lambda: fused_run(spec, ops, count, plain=True), 2)
+            b, by = bound(*fused_work(spec))
+            log(f"[fused] {fused_name(spec)} n={n} ({label}): bit-exact vs plain; {ms:.4f} ms "
+                f"(plain {plain_ms:.3f} ms, bound {b:.5f} ms by {by})")
+            del ops, got
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -277,24 +425,89 @@ def fmt_stats(st):
 
 
 @contextlib.contextmanager
-def recording_ring_mm(calls):
-    """Count, by operand shapes and strides, every ring_mm launch made
-    while the context is open (the wrapper's own launch count is kept)."""
-    from curl_tpu_torch.kernels import ring_mm
+def recording_launches():
+    """Count, by launch signature, every kernel launch made while the
+    context is open (the wrappers' own launch counts are kept): ring_mm by
+    its pairs' shapes and strides; philox by mode, rows, n, kbits and src;
+    fused_mul by op, truncation, bits and its operands' shapes and strides;
+    ltz and max_step by their operands' shapes and strides."""
+    import curl_tpu_torch.random as crandom
+    from curl_tpu_torch.kernels import fused_mul, max_step, ring_mm
 
-    orig = ring_mm.ring_mm
+    calls = {kind: {} for kind in ("ring_mm", "philox", "fused_mul", "ltz", "max_step")}
 
-    def recording(pairs):
+    def note(kind, sig):
+        calls[kind][sig] = calls[kind].get(sig, 0) + 1
+
+    def layout(*ts):
+        return tuple((tuple(t.shape), t.stride()) for t in ts)
+
+    def rec_ring_mm(pairs):
         pairs = list(pairs)
-        sig = tuple((tuple(a.shape), a.stride(), tuple(b.shape), b.stride()) for a, b in pairs)
-        calls[sig] = calls.get(sig, 0) + 1
-        return orig(pairs)
+        note("ring_mm", tuple((tuple(a.shape), a.stride(), tuple(b.shape), b.stride())
+                              for a, b in pairs))
+        return orig["ring_mm"](pairs)
 
-    ring_mm.ring_mm = recording
+    def rec_philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=None):
+        note("philox", (mode, len(keys), n, kbits, src))
+        return orig["philox"](mode, keys, counter, n, plain, src, kbits, device)
+
+    def rec_fused_mul(op, trunc, m, x, y, key, count):
+        note("fused_mul", (op, trunc, m) + layout(*([x] if y is None else [x, y])))
+        return orig["fused_mul"](op, trunc, m, x, y, key, count)
+
+    def rec_ltz(d, key, count):
+        note("ltz", layout(d))
+        return orig["ltz"](d, key, count)
+
+    def rec_max_step(carry, rolled, key, count):
+        note("max_step", layout(carry, rolled))
+        return orig["max_step"](carry, rolled, key, count)
+
+    targets = [(ring_mm, "ring_mm", rec_ring_mm), (crandom, "philox", rec_philox),
+               (fused_mul, "fused_mul", rec_fused_mul), (max_step, "ltz", rec_ltz),
+               (max_step, "max_step", rec_max_step)]
+    orig = {name: getattr(mod, name) for mod, name, _ in targets}
+    for mod, name, fn in targets:
+        setattr(mod, name, fn)
     try:
         yield calls
     finally:
-        ring_mm.ring_mm = orig
+        for mod, name, _ in targets:
+            setattr(mod, name, orig[name])
+
+
+def reset_launches():
+    from curl_tpu_torch.kernels import fused_mul, max_step, philox, ring_mm
+
+    for mod in (ring_mm, philox, fused_mul, max_step):
+        mod.reset_launches()
+
+
+def read_launches():
+    """Launches since the last reset: by kernel (the JSON line's names) and
+    fused_mul by op+truncation."""
+    from curl_tpu_torch.kernels import fused_mul, max_step, philox, ring_mm
+
+    by_kernel = {"ring_mm": ring_mm.launches.get(1, 0), "ring_mm_acc": ring_mm.launches.get(2, 0),
+                 "philox": sum(philox.launches.values()),
+                 "fused_mul": sum(fused_mul.launches.values()),
+                 "ltz": max_step.launches.get("ltz", 0),
+                 "max_step": max_step.launches.get("max_step", 0)}
+    return by_kernel, dict(fused_mul.launches), dict(philox.launches)
+
+
+def recorded_launches(calls):
+    """The recorded signatures' launches in read_launches' form."""
+    by_kernel = {"ring_mm": 0, "ring_mm_acc": 0}
+    for sig, n in calls["ring_mm"].items():
+        by_kernel["ring_mm" if len(sig) == 1 else "ring_mm_acc"] += n
+    for kind in ("philox", "fused_mul", "ltz", "max_step"):
+        by_kernel[kind] = sum(calls[kind].values())
+    by_op = {}
+    for sig, n in calls["fused_mul"].items():
+        by_op[f"{sig[0]}+{sig[1]}"] = by_op.get(f"{sig[0]}+{sig[1]}", 0) + n
+    return by_kernel, by_op
 
 
 def private_hidden(model, xe, skip=None):
@@ -324,11 +537,21 @@ def profile_forward(model, xe, best_s):
     if busy_ms == 0:
         log("[profile] the profiler recorded no device time: device busy share not measured")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     log(f"[profile] device busy {busy_ms:.1f} ms per forward, "
-        f"{busy_ms / (best_s * 1e3):.1%} of the best unprofiled latency {best_s * 1e3:.1f} ms")
+        f"{busy_ms / (best_s * 1e3):.1%} of the best unprofiled latency {best_s * 1e3:.1f} ms; "
+        f"{sum(e.count for e in events)} kernel launches")
     for e in top:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    port = {}
+    for e in events:
+        for name in ("ring_mm_kernel", "philox_kernel", "fused_mul_kernel", "step_kernel<false>",
+                     "step_kernel<true>"):
+            if name in e.key:
+                ms, n = port.get(name, (0.0, 0))
+                port[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    log("[profile] the port's kernels in the forward: " + ", ".join(
+        f"{name} {ms:.2f} ms / {n}" for name, (ms, n) in port.items()))
 
 
 def run_forward(dev):
@@ -353,11 +576,11 @@ def run_forward(dev):
     # warm-up forward through the model's own modules in forward order,
     # keeping the final-LayerNorm hidden state and recording the operand
     # layouts of every ring_mm launch
-    calls = {}
     t0 = time.perf_counter()
-    with recording_ring_mm(calls):
+    with recording_launches() as rec:
         h = private_hidden(model, xe)
         probs = model.softmax(model.fc(h))
+    calls = rec["ring_mm"]
     hidden = h.get_plain_text()
     probs = probs.get_plain_text()
     log(f"[forward] warm-up forward {time.perf_counter() - t0:.2f} s")
@@ -371,8 +594,7 @@ def run_forward(dev):
     lat = []
     for i in range(3):
         if i == 2:
-            ring_mm.reset_launches()
-            philox.reset_launches()
+            reset_launches()
             ct.reset_communication_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -428,13 +650,94 @@ def run_forward(dev):
         recorded[len(sig)] = recorded.get(len(sig), 0) + n
     if recorded != rm_launches:
         failures.append(f"recorded ring_mm launches {recorded} != counted {rm_launches}")
-    launches = {"ring_mm": rm_launches.get(1, 0), "ring_mm_acc": rm_launches.get(2, 0),
-                "philox": sum(ph_launches.values())}
+    forward = dict(model=model, xe=xe, ref_hidden=ref_hidden, fault_block=j)
+    return forward, failures
+
+
+def run_bench_forward(fw):
+    """Phase 4b: phase 4's model and tokens under bench.py's kernel
+    configuration, then once with the fused knobs off."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+
+    model, xe, ref_hidden = fw["model"], fw["xe"], fw["ref_hidden"]
+    with cfg.temp_override(BENCH_CONFIG):
+        # warm-up forward, recording the signature of every kernel launch
+        t0 = time.perf_counter()
+        with recording_launches() as calls:
+            h = private_hidden(model, xe)
+            model.softmax(model.fc(h))
+        hidden = h.get_plain_text()
+        log(f"[bench] warm-up forward {time.perf_counter() - t0:.2f} s")
+        lat = []
+        for i in range(3):
+            if i == 2:
+                reset_launches()
+                ct.reset_communication_stats()
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(xe)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if i == 2:
+                launches, by_op, ph_modes = read_launches()
+                stats = ct.get_communication_stats()
+                peak = torch.cuda.max_memory_allocated()
+        out = out.get_plain_text()
+        log(f"[bench] latencies {', '.join(f'{x:.4f}' for x in lat)} s; "
+            f"{SEQ / min(lat):.1f} tokens/s (best)")
+        log(f"[bench] one forward: {stats['rounds']} rounds, {stats['bytes']} bytes per party")
+        log(f"[bench] one forward: launches {launches}; fused_mul by op {by_op}; "
+            f"philox by mode {ph_modes}")
+        log(f"[bench] peak device memory {peak / 2**30:.2f} GiB")
+        profile_forward(model, xe, min(lat))
+        fault = hidden_stats(private_hidden(model, xe, skip=fw["fault_block"]).get_plain_text(),
+                             ref_hidden)
+    sound = hidden_stats(hidden, ref_hidden)
+    log(f"[bench] final-LN hidden: {fmt_stats(sound)} (bounds: max {HIDDEN_STATE_ATOL}, "
+        f"scale-free rel L2 {HIDDEN_STATE_SCALE_FREE_L2})")
+    log(f"[bench] planted fault, private forward without block {fw['fault_block']}: "
+        f"{fmt_stats(fault)}")
+
+    # the same forward with the fused knobs off (the composable scan_reduction)
+    with cfg.temp_override(FUSED_OFF):
+        ct.reset_communication_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(xe)
+        torch.cuda.synchronize()
+        lat_off = time.perf_counter() - t0
+        stats_off = ct.get_communication_stats()
+    log(f"[bench] fused knobs off: {lat_off:.4f} s (one forward after the fused runs); "
+        f"{stats_off['rounds']} rounds, {stats_off['bytes']} bytes per party")
+
+    failures = []
+    if out.shape != (1, SEQ, 50257) or not np.isfinite(out).all():
+        failures.append(f"bench forward output {out.shape} is not finite (1, {SEQ}, 50257)")
+    if not np.isfinite(hidden).all():
+        failures.append("bench final-LN hidden state is not finite")
+    limit = HIDDEN_STATE_SCALE_FREE_L2
+    if sound["max_abs"] > HIDDEN_STATE_ATOL or sound["scale_free_l2"] > limit:
+        failures.append(f"bench final-LN hidden error ({fmt_stats(sound)}) exceeds its bounds")
+    if fault["scale_free_l2"] <= limit:
+        failures.append(f"bench planted fault ({fmt_stats(fault)}) passes the bound {limit}")
+    missing = [k for k, n in launches.items() if n == 0]
+    missing += [op for op in ("mul", "square", "trunc")
+                if not any(tag.startswith(op + "+") for tag in by_op)]
+    if missing:
+        failures.append(f"bench forward launched no {missing}: {launches}, {by_op}")
+    if recorded_launches(calls) != (launches, by_op):
+        failures.append(f"bench recorded launches {recorded_launches(calls)} != counted "
+                        f"{(launches, by_op)}")
+    for key in ("rounds", "bytes"):
+        if stats[key] != stats_off[key]:
+            failures.append(f"bench {key} {stats[key]} != {stats_off[key]} with the knobs off")
     return launches, calls, failures
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: ring_mm in the layouts the forward passed
+# Phase 5: every kernel in the launch signatures the forward passed
 # ---------------------------------------------------------------------------
 
 def _distinct_numel(shape, stride):
@@ -499,6 +802,88 @@ def check_path_ring_mm(calls, dev, gen):
     return entries
 
 
+def _path_entry(name, replaces, rows, source):
+    """One kernel's JSON entry from its timed signatures: time, plain time
+    and bound summed over the forward's launches."""
+    tot = {k: sum(r[k] * r["count"] for r in rows) for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
+    b, by = (tot["t_bytes"], "bytes") if tot["t_bytes"] >= tot["t_ops"] else (tot["t_ops"],
+                                                                            "operations")
+    log(f"[path] {name}: one forward's {sum(r['count'] for r in rows)} launches over "
+        f"{len(rows)} signatures, bit-exact vs plain: {tot['ms']:.3f} ms "
+        f"(bound {b:.4f} ms by {by}; plain {tot['plain_ms']:.1f} ms)")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                shape=f"one forward: every launch, {len(rows)} signatures", max_abs_err=0,
+                ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by, library_ms=None)
+
+
+def _log_rows(name, rows, describe, top=12):
+    total = sum(r["ms"] * r["count"] for r in rows) or 1.0
+    for r in sorted(rows, key=lambda r: -r["ms"] * r["count"])[:top]:
+        b = max(r["t_bytes"], r["t_ops"])
+        log(f"[path] {name} x{r['count']}: {r['ms']:.4f} ms each, "
+            f"{r['ms'] * r['count']:.3f} ms a forward ({r['ms'] * r['count'] / total:.1%}); "
+            f"bound {b:.5f} ms; plain {r['plain_ms']:.3f} ms; {describe(r['sig'])}")
+
+
+def check_path_philox(calls, dev, gen):
+    """Every (mode, rows, n, kbits, src) the forward passed to philox, on
+    fresh keys and plaintexts: bit-exact against plain, timed."""
+    from curl_tpu_torch.kernels import philox
+
+    rows = []
+    for sig, count in calls.items():
+        mode, nkeys, n, kbits, src = sig
+        plain = None
+        if mode == "share":
+            plain = rand_i64(gen, (n,), dev)
+        elif mode == "share_lane":
+            plain = rand_i64(gen, (nkeys, n), dev)
+        kw = dict(keys=[0x0123456789ABCDEF + 7919 * i for i in range(nkeys)], counter=3, n=n,
+                  plain=plain, src=src, kbits=kbits, device=dev)
+        got = philox.philox(mode, **kw)
+        if not torch.equal(got, philox.plain_philox(mode, **kw)):
+            raise AssertionError(f"philox at the path signature {sig}: kernel != plain")
+        nbytes = (got.numel() + (plain.numel() if plain is not None else 0)) * 8
+        rows.append(dict(sig=sig, count=count, ms=cuda_ms(lambda: philox.philox(mode, **kw), 5),
+                         plain_ms=cuda_ms(lambda: philox.plain_philox(mode, **kw), 1),
+                         t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                         t_ops=nkeys * (n + 1) // 2 * PHILOX_OPS / INT32_OPS_PER_S * 1e3))
+        del got, plain
+    _log_rows("philox", rows, lambda s: f"{s[0]} rows {s[1]} n {s[2]} kbits {s[3]}")
+    return _path_entry("philox", "curl_tpu/ops/pallas_przs.py:218 (_build2d; 1-D: :60 _build)",
+                       rows, "curl_tpu_torch/csrc/philox.cu")
+
+
+def check_path_fused(calls, dev, gen):
+    """Every launch signature the forward passed to fused_mul, ltz and
+    max_step, on fresh operands of the same shapes and strides: bit-exact
+    against plain, timed, summed over the forward's launches."""
+    entries = []
+    for kind, replaces, source in (
+            ("fused_mul", "curl_tpu/ops/pallas_mul.py:177", "curl_tpu_torch/csrc/fused_mul.cu"),
+            ("ltz", "curl_tpu/ops/pallas_max_step.py:346", "curl_tpu_torch/csrc/max_step.cu"),
+            ("max_step", "curl_tpu/ops/pallas_max_step.py:223",
+             "curl_tpu_torch/csrc/max_step.cu")):
+        rows = []
+        for i, (sig, count) in enumerate(calls[kind].items()):
+            spec = fused_spec(kind, sig)
+            ops = [_strided_i64(gen, shape, st, dev) for shape, st in spec["operands"]]
+            got = fused_run(spec, ops, i)
+            if not torch.equal(got, fused_run(spec, ops, i, plain=True)):
+                raise AssertionError(f"{fused_name(spec)} at the path signature {sig}: "
+                                     "kernel != plain")
+            nbytes, nops = fused_work(spec)
+            rows.append(dict(sig=sig, count=count, ms=cuda_ms(lambda: fused_run(spec, ops, i), 5),
+                             plain_ms=cuda_ms(lambda: fused_run(spec, ops, i, plain=True), 1),
+                             t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                             t_ops=nops / INT32_OPS_PER_S * 1e3))
+            del ops, got
+        torch.cuda.empty_cache()
+        _log_rows(kind, rows, lambda s: " ".join(str(x) for x in s))
+        entries.append(_path_entry(kind, replaces, rows, source))
+    return entries
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -512,7 +897,7 @@ def main():
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     secs = build.build_all()
-    log(f"[build] ring_mm and philox built for sm_90a in {secs:.1f} s")
+    log(f"[build] {', '.join(build.KERNELS)} built for sm_90a in {secs:.1f} s")
     for name, text in sorted(build.build_logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -520,11 +905,18 @@ def main():
 
     gen = torch.Generator().manual_seed(5)
     check_ring_mm(dev, gen)
-    kernels = check_philox(dev, gen)
+    check_philox(dev, gen)
     torch.cuda.empty_cache()
+    check_fused(dev, gen)
 
-    launches, calls, failures = run_forward(dev)
-    kernels = check_path_ring_mm(calls, dev, gen) + kernels
+    forward, failures = run_forward(dev)
+    launches, calls, bench_failures = run_bench_forward(forward)
+    failures += bench_failures
+    del forward
+    torch.cuda.empty_cache()
+    kernels = (check_path_ring_mm(calls["ring_mm"], dev, gen)
+               + [check_path_philox(calls["philox"], dev, gen)]
+               + check_path_fused(calls, dev, gen))
     if failures:
         raise AssertionError("; ".join(failures))
     for k in kernels:

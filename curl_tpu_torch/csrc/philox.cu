@@ -21,32 +21,19 @@
 // p, so the PRZS rows telescope to zero over the parties; each ring stream
 // is generated once per element and used by both parties that hold it.
 //
+// The Philox rounds are csrc/philox.cuh's device function, which the fused
+// protocol kernels share.
+//
 // What bounds it: the bytes written (8 per output element, at most 8 rows);
 // the 10 Philox rounds per stream are a few dozen integer instructions per
 // element, well under the write time at the card's memory rate.
 
-#include <cuda_runtime.h>
+#include "philox.cuh"
 
 namespace {
 
 constexpr int kMaxRows = 8;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned lo0 = 0xD2511F53u * c.x;
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned lo1 = 0xCD9E8D57u * c.z;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
 
 }  // namespace
 

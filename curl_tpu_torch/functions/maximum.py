@@ -1,14 +1,16 @@
 """max / max_value reductions (counterpart of ``curl_tpu/functions/maximum.py``).
 
-This slice ports the methods the shipped config runs: ``log_reduction``
-(pairwise halvings, then the all-pairs max of the remainder) and
-``pairwise`` (all-pairs comparisons with a weighted random tie-break). The
-fused TPU tournament step (``fused_max_step``) is off under the shipped
-config and takes the composable path, as in the JAX package.
+Ported methods: ``log_reduction`` (pairwise halvings, then the all-pairs max
+of the remainder), ``pairwise`` (all-pairs comparisons with a weighted
+random tie-break) and ``scan_reduction`` (a cascade of chunk folds and a
+butterfly tail, each step one compare and a one-multiply select). With
+``mpc.fused_max_step`` = "cuda" each tournament step of ``scan_reduction``
+is one fused pass (``kernels/max_step.py``).
 """
 
 from __future__ import annotations
 
+import builtins
 import math
 
 from ..config import cfg
@@ -34,10 +36,12 @@ def max_value(self, dim=None, keepdim=False):
     method = cfg.functions.max_method
     if self.dim() == 0:
         return self
-    if method != "log_reduction":
+    helpers = {"log_reduction": _max_helper_log_reduction,
+               "scan_reduction": _max_helper_scan_reduction}
+    if method not in helpers:
         raise NotImplementedError(f"max_method {method!r} is not ported yet")
     inp = self.flatten() if dim is None else self
-    out = _max_helper_log_reduction(inp, dim=0 if dim is None else dim)
+    out = helpers[method](inp, dim=0 if dim is None else dim)
     if dim is not None and keepdim and out.dim() < self.dim():
         out = out.unsqueeze(dim)
     return out
@@ -71,6 +75,82 @@ def _max_helper_log_reduction(enc_tensor, dim):
     with cfg.temp_override({"functions.max_method": "pairwise"}):
         enc_max_vec, _ = reduced.max(dim=dim)
     return enc_max_vec
+
+
+def _use_fused_max_step() -> bool:
+    """cfg.mpc.fused_max_step = "cuda": each tournament step (compare +
+    select) as one fused pass (``kernels/max_step.py``); 2 parties only."""
+    from .. import comm
+
+    return getattr(cfg.mpc, "fused_max_step", None) == "cuda" and comm.get_world_size() == 2
+
+
+def _tournament_select(carry, rolled, fused):
+    """new = rolled + (carry >= rolled) * (carry - rolled): one compare and a
+    one-multiply select, or one fused pass."""
+    if fused:
+        from ..kernels import max_step
+
+        return max_step.fused_max_step_mpc(carry, rolled)
+    keep = carry.ge(rolled)
+    return carry.sub(rolled).mul(keep).add(rolled)
+
+
+def _max_helper_scan_reduction(enc_tensor, dim):
+    """Max along ``dim`` by a cascade of chunk folds and a butterfly tail
+    (maximum.py:235-389).
+
+    The reduce axis moves last and pads to a power of two with the public
+    sentinel -2^(w-3-precision) (w = mpc.compare_bits: the most negative
+    value whose differences stay inside the comparison ring). Then the axis
+    folds as (G, W) chunks into a running elementwise max (W =
+    functions.scan_fixed_width), shrinks by functions.scan_cascade_factor a
+    stage down to functions.scan_cascade_min, and a butterfly of rolls
+    leaves the max in lane 0. The JAX package runs each stage as one
+    ``lax.scan`` body and forks the protocol randomness per step
+    (``rng.fork``); here each stage is a Python loop, and every draw of the
+    port comes from a fresh draw count, so no fork is needed.
+    """
+    from ..mpc.mpc import _compare_bits
+
+    dim = dim + enc_tensor.dim() if dim < 0 else dim
+    x = enc_tensor
+    if dim != x.dim() - 1:
+        x = x.permute(*[i for i in range(x.dim()) if i != dim], dim)
+    n = x.size(x.dim() - 1)
+    padded = 1 << (math.ceil(math.log2(n)) if n > 1 else 1)
+    if padded != n:
+        prec = enc_tensor.encoder.precision_bits
+        x = x.pad((0, padded - n), value=-float(2 ** (_compare_bits() - 3 - prec)))
+
+    F = cfg.functions
+    fixed_width = 1 << int(math.floor(math.log2(builtins.max(int(F.scan_fixed_width), 1))))
+    cascade_factor = builtins.max(int(F.scan_cascade_factor), 2)
+    cascade_min = 1 << int(math.floor(math.log2(builtins.max(int(F.scan_cascade_min), 1))))
+    fused = _use_fused_max_step()
+
+    def fold_to(x, width_out):
+        """(..., W_in) -> (..., width_out): a running max over the chunks."""
+        groups = x.size(x.dim() - 1) // width_out
+        chunked = x.reshape(*(tuple(x.size()[:-1]) + (groups, width_out)))
+        d = chunked.dim()
+        carry = chunked.narrow(d - 2, 0, 1).squeeze(d - 2)
+        for g in range(1, groups):
+            carry = _tournament_select(carry, chunked.narrow(d - 2, g, 1).squeeze(d - 2), fused)
+        return carry
+
+    width = builtins.min(padded, fixed_width)
+    if padded > width:
+        x = fold_to(x, width)
+    while width > cascade_min:
+        width_next = builtins.max(width // cascade_factor, cascade_min)
+        x = fold_to(x, width_next)
+        width = width_next
+    # butterfly tail: the max lands in lane 0
+    k_tail = math.ceil(math.log2(width)) if width > 1 else 0
+    for i in range(k_tail):
+        x = _tournament_select(x, x.roll(-(width >> (i + 1)), dims=x.dim() - 1), fused)
+    return x.narrow(x.dim() - 1, 0, 1).squeeze(x.dim() - 1)
 
 
 def _argmax_helper(enc_tensor, dim, method):

@@ -7,8 +7,10 @@ with a plain C interface,
          -Xcompiler -fPIC -Xptxas -v -o build/curl_tpu_torch/<name>-<hash>.so
 
 under ``build/`` at the root of the checkout. The file name carries a hash
-of the source, so an edited source rebuilds and an unchanged one is loaded
-as it is. ``build_all`` starts one nvcc per source, all at once.
+of the source and of every local header it includes (``#include "..."``,
+followed recursively), so an edited source or header rebuilds and an
+unchanged one is loaded as it is. ``build_all`` starts one nvcc per source,
+all at once.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +27,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "curl_tpu_torch")
-KERNELS = ("ring_mm", "philox")
+KERNELS = ("ring_mm", "philox", "fused_mul", "max_step")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,10 +49,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen: list) -> list:
+    """``path`` and every local header it includes, recursively, in the
+    order first met."""
+    path = os.path.normpath(path)
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return seen
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in _sources(os.path.join(CSRC_DIR, f"{name}.cu"), []):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str, target: str) -> subprocess.Popen:

@@ -31,6 +31,11 @@ _M32 = 0xFFFFFFFF
 _MUL0, _MUL1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
+# The fused protocol kernels (fused_mul.cu, max_step.cu) key their draws by
+# a Philox counter of the call's draw count and the draw's slot
+SLOT_SHIFT = 48
+MAX_COUNT = 1 << SLOT_SHIFT
+
 # launches of the kernel, by mode
 launches = {}
 
@@ -75,6 +80,12 @@ def stream(key: int, counter: int, n: int, device) -> torch.Tensor:
     e0 = r0 | (r1 << 32)
     e1 = r2 | (r3 << 32)
     return torch.stack([e0, e1], dim=-1).reshape(-1)[:n]
+
+
+def slot_counter(count: int, slot: int) -> int:
+    """The 64-bit Philox counter of draw ``slot`` of a fused call with draw
+    count ``count`` (``csrc/philox.cuh``'s ``philox_slot``)."""
+    return count | (slot << SLOT_SHIFT)
 
 
 def _check(mode, keys, n, plain, src, kbits):

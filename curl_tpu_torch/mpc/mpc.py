@@ -33,6 +33,23 @@ def _compare_bits() -> int:
     return width if width in (16, 32) else 64
 
 
+def _use_fused_compare(x) -> bool:
+    """cfg.mpc.fused_compare = "cuda": _ltz, the funnel of every comparison,
+    as one fused pass (``kernels/max_step.fused_ltz_mpc``): 2 parties, the
+    packed 32-bit comparison ring the pass implements, and at least
+    MIN_ELEMENTS elements (smaller tensors stay on the composable path)."""
+    from .. import comm
+    from ..config import cfg
+    from ..kernels import max_step
+
+    return (
+        getattr(cfg.mpc, "fused_compare", None) == "cuda"
+        and _compare_bits() == 32
+        and x.nelement() >= max_step.MIN_ELEMENTS
+        and comm.get_world_size() == 2
+    )
+
+
 def _pack_narrow(share, width):
     """Pack 64/width consecutive elements' low ``width`` bits into one word
     per party: (P, *shape) -> (P, ceil(n / lanes)). Shares of a mod-2^64
@@ -140,7 +157,12 @@ class MPCTensor:
         """1 if value < 0 else 0 (reference mpc.py:233-242): A2B, sign bit,
         B2A of one bit. With cfg.mpc.compare_bits = w < 64 (default 32),
         64/w elements are packed per word first: exact whenever
-        |value| < 2^(w-1) ring units."""
+        |value| < 2^(w-1) ring units. With mpc.fused_compare = "cuda" the
+        whole comparison is one fused pass (``_use_fused_compare``)."""
+        if _use_fused_compare(self):
+            from ..kernels import max_step
+
+            return max_step.fused_ltz_mpc(self)
         precision = 0 if self.encoder.scale == 1 else None
         width = _compare_bits()
         if width >= 64:
@@ -194,6 +216,9 @@ class MPCTensor:
 
     def evaluate_embed(self, embed):
         return self._wrap(self._tensor.evaluate_embed(_unwrap(embed)))
+
+    def pad(self, pad_width, value=0):
+        return self._wrap(self._tensor.pad(pad_width, value=value))
 
     # operators
     __add__ = add

@@ -5,9 +5,10 @@ Counterpart of ``curl_tpu/mpc/primitives/arithmetic.py``. ``share`` is a
 per-party shape, as in the JAX package's per-party view. ``reveal`` sums
 over the party axis (``comm.all_sum``). Semantics follow the JAX package:
 PRZS sharing, public/private dispatch, the post-multiply rescale by EGK
-probabilistic truncation or 2PC local truncation. The fused TPU kernels of
-the JAX package (``fused_mul``, ``fused_trunc``) are off under the shipped
-config; these products take the composable path, as they do there.
+probabilistic truncation or 2PC local truncation. With ``mpc.fused_mul`` /
+``mpc.fused_trunc`` = "cuda" (off as shipped) an elementwise product, a
+square and an l = 62 EGK truncation of 2 parties run as one fused pass
+(``kernels/fused_mul.py``) under the JAX package's gates.
 """
 
 from __future__ import annotations
@@ -143,6 +144,20 @@ class ArithmeticSharedTensor:
             result.share, FixedPointEncoder(int(math.log2(max(y_scale, 1))))
         )
 
+    def _fused_mul_mode(self, y):
+        """(trunc, m) for the fused elementwise product, or None for the
+        composable path: both operands fixed-point or both integers; a
+        mixed-scale product keeps the composable rescale bookkeeping."""
+        from ...kernels import fused_mul
+
+        if not fused_mul.fused_available(self, y):
+            return None
+        if self.encoder.scale > 1 and y.encoder.scale > 1:
+            return str(cfg.encoder.trunc_method.prod), self.encoder.precision_bits
+        if self.encoder.scale == 1 and y.encoder.scale == 1:
+            return "none", 0
+        return None
+
     def mul(self, y):
         if isinstance(y, numbers.Integral) and not isinstance(y, bool):
             return self.with_share(self.share * ring.scalar(int(y)))
@@ -154,6 +169,11 @@ class ArithmeticSharedTensor:
                 nd = max(self.ndim, encoded.dim())
                 out = self.with_share(lift(self.share, nd) * encoded)
             return self._rescale_product(out, self.encoder.scale)
+        fused = self._fused_mul_mode(y)
+        if fused is not None:
+            from ...kernels import fused_mul
+
+            return fused_mul.fused_mul_mpc(self, y, *fused)
         out = _get_protocol().mul(self, y)
         return self._rescale_product(out, y.encoder.scale)
 
@@ -167,6 +187,12 @@ class ArithmeticSharedTensor:
         return self._rescale_product(out, y.encoder.scale)
 
     def square(self):
+        from ...kernels import fused_mul
+
+        if fused_mul.fused_available(self):
+            # always the local crypten rescale, as the composable path below
+            m = self.encoder.precision_bits if self.encoder.scale > 1 else 0
+            return fused_mul.fused_square_mpc(self, "crypten", m)
         out = _get_protocol().square(self)
         return out.div_trunc(self.encoder.scale)
 
@@ -193,6 +219,12 @@ class ArithmeticSharedTensor:
         """EGK+20 probabilistic truncation by m bits (arithmetic.py:508)."""
         if m == 0:
             return self
+        from ...kernels import fused_mul
+
+        # the fused pass implements l = 62, the only l of the product
+        # rescale and the LUT index truncations
+        if l == fused_mul.EGK_L and fused_mul.fused_available(self, key="fused_trunc"):
+            return fused_mul.fused_trunc_mpc(self, m)
         return ArithmeticSharedTensor(
             _get_protocol().egk_trunc_pr(self, l, m).share, self.encoder
         )
@@ -230,6 +262,17 @@ class ArithmeticSharedTensor:
 
     def encode_as(self, other: "ArithmeticSharedTensor"):
         return self.encode_to(other.encoder)
+
+    def pad(self, pad_width, value=0):
+        """Constant-pad the trailing dims (torch's F.pad convention):
+        party 0 holds the encoded public ``value`` in the pad, the others 0."""
+        padded = torch.nn.functional.pad(self.share, tuple(pad_width), value=0)
+        encoded = _encode(self.encoder, value)
+        region = torch.nn.functional.pad(
+            torch.zeros(self.shape, dtype=torch.int64, device=self.share.device),
+            tuple(pad_width), value=encoded,
+        )
+        return self.with_share(padded + rank0(region, ndim=self.ndim))
 
     @staticmethod
     def stack(tensors, axis=0):

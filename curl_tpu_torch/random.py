@@ -7,7 +7,10 @@ Counterpart of ``curl_tpu/random.py``. Every stream is a 64-bit Philox seed:
             PRZS telescopes to zero over the parties;
   local[p]  private to party p;
   global    shared by all parties (public randomness);
-  dealer    the TFP dealer's stream for tuple plaintexts.
+  dealer    the TFP dealer's stream for tuple plaintexts;
+  fused     the dealer's stream for the randomness the fused protocol
+            kernels draw in-kernel (``kernels/fused_mul.py``,
+            ``kernels/max_step.py``), derived from the dealer seed.
 
 A draw is (stream seed, draw counter, element index) -> 64 bits: the counter
 advances once per draw and restarts in ``init`` (``reset_count``), so a
@@ -66,12 +69,14 @@ def make_party_keys(seed: int, world_size: int) -> dict:
         return _splitmix64(_splitmix64(_splitmix64(seed & _M64) ^ tag) ^ i)
 
     ring = [derive(1, i) for i in range(world_size)]
+    dealer = derive(4)
     return {
         "next": ring,
         "prev": [ring[(p - 1) % world_size] for p in range(world_size)],
         "local": [derive(2, i) for i in range(world_size)],
         "global": [derive(3)],
-        "dealer": [derive(4)],
+        "dealer": [dealer],
+        "fused": [_splitmix64(dealer ^ 0x46555345445F4B31)],
     }
 
 
@@ -87,7 +92,7 @@ def current_keys() -> dict:
 
 
 # party-invariant streams: one row, no party axis
-_SHARED = ("global", "dealer")
+_SHARED = ("global", "dealer", "fused")
 
 
 def dealer_stream() -> str:

@@ -67,3 +67,51 @@ def test_philox_kernel_matches_plain_on_card():
                      ("share_lane", {"plain": torch.stack([plain, -plain]), "src": 1})):
         got = philox.philox(mode, keys, 4, 1001, device="cuda", **kw)
         assert torch.equal(got, philox.plain_philox(mode, keys, 4, 1001, device="cuda", **kw))
+
+
+def test_fused_kernels_refuse_cpu_tensors_and_bad_arguments():
+    from curl_tpu_torch.kernels import fused_mul, max_step
+
+    x = torch.zeros(2, 8, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        fused_mul.launch("mul", "egk", 16, x, x, 1, 0)
+    with pytest.raises(ValueError):
+        max_step.launch_ltz(x, 1, 0)
+    with pytest.raises(ValueError):
+        max_step.launch_max_step(x, x, 1, 0)
+    bad = (
+        lambda: fused_mul.plain("cube", "egk", 16, x, None, 1, 0),   # unknown op
+        lambda: fused_mul.plain("mul", "egk", 16, x, None, 1, 0),    # mul without y
+        lambda: fused_mul.plain("trunc", "none", 0, x, None, 1, 0),  # trunc is EGK alone
+        lambda: fused_mul.plain("square", "egk", 62, x, None, 1, 0),  # m outside 0..61
+        lambda: fused_mul.plain("square", "egk", 16, x, None, 1, 1 << 48),  # count > 48 bits
+        lambda: fused_mul.plain("square", "egk", 16, x[:1], None, 1, 0),  # one party
+        lambda: max_step.plain_ltz(x.to(torch.int32), 1, 0),
+        lambda: max_step.plain_max_step(x, x, 1, -1),
+    )
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.cuda
+def test_fused_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from curl_tpu_torch.kernels import fused_mul, max_step
+
+    g = torch.Generator().manual_seed(1)
+    r = lambda *s: torch.randint(-(2 ** 40), 2 ** 40, s, generator=g).cuda()  # noqa: E731
+    key = 0x1234_5678_9ABC_DEF0
+    # an odd n; a broadcast column (LayerNorm's rescale); a transposed x
+    # read in place through its strides
+    for x, y in ((r(2, 1031), r(2, 1031)), (r(2, 33, 65), r(2, 33, 1)),
+                 (r(2, 150, 7).transpose(1, 2), r(2, 150))):
+        for op, trunc, m in (("mul", "egk", 16), ("mul", "none", 0), ("mul", "crypten", 16),
+                             ("square", "crypten", 16), ("square", "egk", 16),
+                             ("trunc", "egk", 13)):
+            args = (op, trunc, m, x, y if op == "mul" else None, key, 9)
+            assert torch.equal(fused_mul.launch(*args), fused_mul.plain(*args)), (op, trunc)
+        assert torch.equal(max_step.launch_ltz(x, key, 3), max_step.plain_ltz(x, key, 3))
+        assert torch.equal(max_step.launch_max_step(x, y, key, 4),
+                           max_step.plain_max_step(x, y, key, 4))
