@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of curl_tpu_torch on one CUDA card: kernels, then the private
-2-party GPT-2 forward under the shipped configuration and under bench.py's
-kernel configuration.
+2-party GPT-2 forward under the shipped configuration, under bench.py's
+kernel configuration, and with seed-compressed weights as bench.py builds
+them; then GPT-Neo 1.3B's geometry, seed-compressed.
 
     python3 chip_smoke.py
 
@@ -17,6 +18,10 @@ without the final line):
   3b. fused   fused_mul (each op and truncation the path uses), ltz and
               max_step against their plain versions, bit for bit, at the
               path's sizes and an odd one; time, plain time and bound
+  3c. seed    seed_expand's compress and expand (both parties, one party)
+              against their plain versions, bit for bit, at the compressed
+              paths' tensor sizes and an odd one; expand(compress(e))
+              reconstructs e exactly; time, plain time and bound
   4. forward  GPT-2 (768 wide, 12 heads, 12 blocks, vocab 50257) under
               configs/default.yaml, random weights from a numpy seed,
               encrypted by party 0; a private forward on 64 token ids
@@ -31,13 +36,28 @@ without the final line):
               same readings and checks, launches of every kernel and op,
               the device busy share; then the same forward with the fused
               knobs off, whose rounds and bytes must be equal
-  5. path     every launch signature (shapes, strides, op) the phase 4b
-              forward passed to ring_mm, philox, fused_mul, ltz and
-              max_step, on fresh operands of the same layout: bit for bit
-              against plain, timed, and summed over the forward's launches
-              into each kernel's milliseconds a forward
+  4c. compressed  bench.py's default run: the same weights and tokens
+              through GPT.build_compressed (8 vocab chunks) under bench.py's
+              kernel configuration: build time, resident share bytes (at
+              most 0.6 of the materialized model's), latency, rounds and
+              bytes (phase 4b's plus what the vocab chunks add, exactly),
+              launches of every kernel, seed_expand's included, peak memory,
+              the device busy share, the hidden state and the planted fault
+  4d. neo     GPT-Neo 1.3B's geometry (2048 wide, 16 heads, 24 blocks,
+              vocab 50257) through GPT.build_compressed, chunked block
+              linears, weights made block by block from a numpy seed: the
+              same readings, against its own pre-declared bound
+  5. path     every launch signature (shapes, strides, op) that any of the
+              forwards of phases 4, 4b, 4c and 4d passed to ring_mm, philox,
+              fused_mul, ltz, max_step and seed_expand, on fresh operands of
+              the same layout: bit for bit against plain, timed with the L2
+              cache flushed before each call, and summed over each path's
+              launches into each kernel's milliseconds a forward of that
+              path
 
-It prints one JSON line with every kernel's numbers, then the card's
+It prints one JSON line with every kernel's numbers (launches, time,
+plain time and bound of one phase 4c forward, the slice's main path, and
+under ``paths`` the same for each phase's forward), then the card's
 name and power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -50,6 +70,7 @@ import os
 import subprocess
 import sys
 import time
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -97,6 +118,26 @@ FUSED_SIZES = ((196_608, "GELU, 64 x 3072"), (3_216_448, "vocab softmax, 64 x 50
                (131_072, "vocab fold step, 64 x 2048"), (100_003, "odd"))
 FUSED_VARIANTS = (("mul", "egk", 16), ("square", "crypten", 16), ("trunc", "egk", 12),
                   ("mul", "none", 0))
+# phase 3c: the seed expansion at the compressed paths' tensor sizes, and an odd one
+SEED_SIZES = ((3072 * 768, "GPT-2 FFN weight, 3072 x 768"),
+              (6283 * 768, "GPT-2 vocab chunk, 6283 x 768"),
+              (6283 * 2048, "GPT-Neo vocab chunk, 6283 x 2048"),
+              (2048 * 2048, "GPT-Neo ChunkedLinear chunk, 2048 x 2048"), (1_000_003, "odd"))
+SEED_KEY = 0x0DDB_A11C_0FFE_E5ED
+# bench.py's compressed construction (bench.py:218-223): 8 vocab chunks
+HEAD_CHUNKS = 8
+# Phase 4d's bound on the final-LayerNorm hidden state's scale-free relative
+# L2 error of GPT-Neo's geometry (2048 wide, 24 blocks), fixed before the
+# first run of the phase (PERF.md, "The GPT-Neo bound"). The sound
+# error grows with depth, and the plaintext error of the least-felt block
+# left out shrinks: on the CPU at 24 blocks, widths 64 and 256, the sound
+# private forward reads 0.141 and 0.159 and the plaintext without its
+# least-felt block 0.161 and 0.174, and the private forward without that
+# block reads about sqrt(sound^2 + plaintext^2) (0.203 at width 64); at
+# GPT-2's width and 12 blocks the card read 0.124 and 0.221. At 2048 wide
+# the sound reading is expected near 0.16-0.17 and the planted fault near
+# 0.23-0.25; the bound sits between them.
+NEO_SCALE_FREE_L2 = 0.20
 
 
 def log(msg):
@@ -127,25 +168,44 @@ def _spin(ms):
     torch.cuda._sleep(int(ms * _spin_cycles_per_ms[0]))
 
 
-def cuda_ms(fn, reps):
+# H100 SXM's L2 cache is 50 MB; a read of four times that evicts what a
+# timed call would otherwise find there (a read leaves clean lines, which
+# the timed call then evicts for free)
+L2_FLUSH_BYTES = 4 * 50 * 2 ** 20
+
+
+def cuda_ms(fn, reps, cold=False):
     """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA events),
     after one warm-up run. The runs are queued behind a spin kernel that
     lasts longer than the host takes to queue them, so the events time the
-    device's work, not the gaps of the host's launch overhead."""
+    device's work, not the gaps of the host's launch overhead. ``cold``:
+    each run is timed alone after an L2 flush (not timed), so that it reads
+    its inputs from HBM, as a kernel of the forward does, not from the L2
+    cache the previous run left warm."""
+    flush = torch.ones(L2_FLUSH_BYTES // 8, dtype=torch.int64, device="cuda") if cold else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
+    if cold:
+        flush.sum()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * reps if cold else 2)]
     _spin(1.5 * reps * host_ms + 1.0)
-    start.record()
-    for _ in range(reps):
+    if not cold:
+        marks[0].record()
+        for _ in range(reps):
+            fn()
+        marks[1].record()
+        torch.cuda.synchronize()
+        return marks[0].elapsed_time(marks[1]) / reps
+    for i in range(reps):
+        flush.sum()
+        marks[2 * i].record()
         fn()
-    stop.record()
+        marks[2 * i + 1].record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return sum(marks[2 * i].elapsed_time(marks[2 * i + 1]) for i in range(reps)) / reps
 
 
 def rand_i64(gen, shape, dev):
@@ -338,34 +398,132 @@ def check_fused(dev, gen):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: the seed expansion against its plain version
+# ---------------------------------------------------------------------------
+
+def seed_work(mode, n):
+    """(bytes, 32-bit operations) of one seed_expand call over n elements:
+    the input read once, the output written once (two rows for expand), one
+    Philox call per element pair."""
+    return (3 if mode == "expand" else 2) * n * 8, (n + 1) // 2 * PHILOX_OPS
+
+
+def seed_run(mode, x, plain=False):
+    from curl_tpu_torch.kernels import seed_expand as se
+
+    if mode == "compress":
+        return (se.plain_compress if plain else se.launch_compress)(x, SEED_KEY)
+    parties = 2 if mode == "expand" else 1
+    return (se.plain_expand if plain else se.launch_expand)(x, SEED_KEY, parties)
+
+
+def check_seed(dev, gen):
+    """compress and expand (both parties, and one party) bit for bit against
+    their plain versions at the compressed paths' sizes; expand(compress(e))
+    reconstructs e exactly; timed, each call L2-cold."""
+    for n, label in SEED_SIZES:
+        e = rand_i64(gen, (n,), dev)
+        share0 = seed_run("compress", e)
+        for mode, x in (("compress", e), ("expand", share0), ("expand1", share0)):
+            got = seed_run(mode, x)
+            if not torch.equal(got, seed_run(mode, x, plain=True)):
+                raise AssertionError(f"seed_expand {mode} n={n}: kernel != plain")
+            if mode != "compress" and not torch.equal(got.sum(0), e):
+                raise AssertionError(f"seed_expand {mode} n={n}: the shares do not sum to e")
+            ms = cuda_ms(lambda: seed_run(mode, x), 10, cold=True)
+            plain_ms = cuda_ms(lambda: seed_run(mode, x, plain=True), 2, cold=True)
+            b, by = bound(*seed_work(mode, n))
+            log(f"[seed] {mode} n={n} ({label}): bit-exact vs plain"
+                f"{'' if mode == 'compress' else ', reconstructs e exactly'}; {ms:.4f} ms L2-cold "
+                f"(plain {plain_ms:.3f} ms, bound {b:.5f} ms by {by})")
+            del got
+        del e, share0
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the private GPT-2 forward
 # ---------------------------------------------------------------------------
+
+def _lin(sd, rng, prefix, fan_in, fan_out):
+    b = 1.0 / math.sqrt(fan_in)
+    sd[f"{prefix}.weight"] = rng.uniform(-b, b, size=(fan_out, fan_in))
+    sd[f"{prefix}.bias"] = rng.uniform(-b, b, size=(fan_out,))
+
+
+def _ln(sd, prefix, d):
+    sd[f"{prefix}.weight"] = np.ones(d)
+    sd[f"{prefix}.bias"] = np.zeros(d)
+
+
+def _block_state(sd, rng, prefix, d):
+    _ln(sd, f"{prefix}.ln1", d)
+    _ln(sd, f"{prefix}.ln2", d)
+    _lin(sd, rng, f"{prefix}.attn.search", d, 3 * d)
+    _lin(sd, rng, f"{prefix}.attn.proj", d, d)
+    _lin(sd, rng, f"{prefix}.ff.0", d, 4 * d)
+    _lin(sd, rng, f"{prefix}.ff.2", 4 * d, d)
+
 
 def random_gpt2_state(rng, seq, blocks, d=768, vocab=50257):
     """Weights in the JAX package's init distributions (nn/module.py:571-598):
     Embedding normal, Linear weight and bias uniform in +-1/sqrt(fan_in),
     LayerNorm 1 and 0, pos_embed 0."""
-    def lin(prefix, fan_in, fan_out):
-        b = 1.0 / math.sqrt(fan_in)
-        sd[f"{prefix}.weight"] = rng.uniform(-b, b, size=(fan_out, fan_in))
-        sd[f"{prefix}.bias"] = rng.uniform(-b, b, size=(fan_out,))
-
-    def ln(prefix):
-        sd[f"{prefix}.weight"] = np.ones(d)
-        sd[f"{prefix}.bias"] = np.zeros(d)
-
     sd = {"pos_embed": np.zeros((1, seq, d)), "tok_embed.weight": rng.standard_normal((vocab, d))}
     for i in range(blocks):
-        p = f"blocks.{i}"
-        ln(f"{p}.ln1")
-        ln(f"{p}.ln2")
-        lin(f"{p}.attn.search", d, 3 * d)
-        lin(f"{p}.attn.proj", d, d)
-        lin(f"{p}.ff.0", d, 4 * d)
-        lin(f"{p}.ff.2", 4 * d, d)
-    ln("ln")
-    lin("fc", d, vocab)
+        _block_state(sd, rng, f"blocks.{i}", d)
+    _ln(sd, "ln", d)
+    _lin(sd, rng, "fc", d, vocab)
     return sd
+
+
+class SeededGPTState(Mapping):
+    """A GPT state dict in random_gpt2_state's distributions, made part by
+    part (the embedding, each block, the final LayerNorm and head) from a
+    numpy generator seeded (seed, part), keeping only the part last read:
+    no more than one part's plaintext lives on the host (GPT-Neo's whole
+    float64 state is 10.5 GB). Read the keys in order to make each part once."""
+
+    BLOCK_KEYS = [f"{m}.{p}" for m in ("ln1", "ln2", "attn.search", "attn.proj", "ff.0", "ff.2")
+                  for p in ("weight", "bias")]
+
+    def __init__(self, seed, seq, blocks, d, vocab):
+        self.seed, self.seq, self.blocks, self.d, self.vocab = seed, seq, blocks, d, vocab
+        self._part, self._arrays = None, {}
+
+    def _make(self, part):
+        if part == "embed":
+            rng = np.random.default_rng([self.seed, 0])
+            return {"tok_embed.weight": rng.standard_normal((self.vocab, self.d)),
+                    "pos_embed": np.zeros((1, self.seq, self.d))}
+        sd = {}
+        if part == "head":
+            _ln(sd, "ln", self.d)
+            _lin(sd, np.random.default_rng([self.seed, 1]), "fc", self.d, self.vocab)
+        else:
+            i = int(part.split(".")[1])
+            _block_state(sd, np.random.default_rng([self.seed, 2, i]), part, self.d)
+        return sd
+
+    def __iter__(self):
+        yield from ("tok_embed.weight", "pos_embed")
+        for i in range(self.blocks):
+            yield from (f"blocks.{i}.{key}" for key in self.BLOCK_KEYS)
+        yield from ("ln.weight", "ln.bias", "fc.weight", "fc.bias")
+
+    def __len__(self):
+        return 6 + 12 * self.blocks
+
+    def __getitem__(self, key):
+        if key.startswith("blocks."):
+            part = ".".join(key.split(".")[:2])
+        else:
+            part = "embed" if key in ("tok_embed.weight", "pos_embed") else "head"
+        if part != self._part:
+            self._part, self._arrays = None, {}  # the last part goes before the next is made
+            self._arrays = self._make(part)
+            self._part = part
+        return self._arrays[key]
 
 
 def plain_gpt_forward(sd, tokens, heads, blocks, dev, skip=None, head=True):
@@ -430,11 +588,13 @@ def recording_launches():
     context is open (the wrappers' own launch counts are kept): ring_mm by
     its pairs' shapes and strides; philox by mode, rows, n, kbits and src;
     fused_mul by op, truncation, bits and its operands' shapes and strides;
-    ltz and max_step by their operands' shapes and strides."""
+    ltz and max_step by their operands' shapes and strides; seed_expand by
+    mode, elements and parties."""
     import curl_tpu_torch.random as crandom
-    from curl_tpu_torch.kernels import fused_mul, max_step, ring_mm
+    from curl_tpu_torch.kernels import fused_mul, max_step, ring_mm, seed_expand
 
-    calls = {kind: {} for kind in ("ring_mm", "philox", "fused_mul", "ltz", "max_step")}
+    calls = {kind: {} for kind in ("ring_mm", "philox", "fused_mul", "ltz", "max_step",
+                                   "seed_expand")}
 
     def note(kind, sig):
         calls[kind][sig] = calls[kind].get(sig, 0) + 1
@@ -464,9 +624,13 @@ def recording_launches():
         note("max_step", layout(carry, rolled))
         return orig["max_step"](carry, rolled, key, count)
 
+    def rec_expand(share0, key, parties=2):
+        note("seed_expand", ("expand" if parties == 2 else "expand1", share0.numel(), parties))
+        return orig["expand"](share0, key, parties)
+
     targets = [(ring_mm, "ring_mm", rec_ring_mm), (crandom, "philox", rec_philox),
                (fused_mul, "fused_mul", rec_fused_mul), (max_step, "ltz", rec_ltz),
-               (max_step, "max_step", rec_max_step)]
+               (max_step, "max_step", rec_max_step), (seed_expand, "expand", rec_expand)]
     orig = {name: getattr(mod, name) for mod, name, _ in targets}
     for mod, name, fn in targets:
         setattr(mod, name, fn)
@@ -478,22 +642,23 @@ def recording_launches():
 
 
 def reset_launches():
-    from curl_tpu_torch.kernels import fused_mul, max_step, philox, ring_mm
+    from curl_tpu_torch.kernels import fused_mul, max_step, philox, ring_mm, seed_expand
 
-    for mod in (ring_mm, philox, fused_mul, max_step):
+    for mod in (ring_mm, philox, fused_mul, max_step, seed_expand):
         mod.reset_launches()
 
 
 def read_launches():
     """Launches since the last reset: by kernel (the JSON line's names) and
     fused_mul by op+truncation."""
-    from curl_tpu_torch.kernels import fused_mul, max_step, philox, ring_mm
+    from curl_tpu_torch.kernels import fused_mul, max_step, philox, ring_mm, seed_expand
 
     by_kernel = {"ring_mm": ring_mm.launches.get(1, 0), "ring_mm_acc": ring_mm.launches.get(2, 0),
                  "philox": sum(philox.launches.values()),
                  "fused_mul": sum(fused_mul.launches.values()),
                  "ltz": max_step.launches.get("ltz", 0),
-                 "max_step": max_step.launches.get("max_step", 0)}
+                 "max_step": max_step.launches.get("max_step", 0),
+                 "seed_expand": sum(seed_expand.launches.values())}
     return by_kernel, dict(fused_mul.launches), dict(philox.launches)
 
 
@@ -502,7 +667,7 @@ def recorded_launches(calls):
     by_kernel = {"ring_mm": 0, "ring_mm_acc": 0}
     for sig, n in calls["ring_mm"].items():
         by_kernel["ring_mm" if len(sig) == 1 else "ring_mm_acc"] += n
-    for kind in ("philox", "fused_mul", "ltz", "max_step"):
+    for kind in ("philox", "fused_mul", "ltz", "max_step", "seed_expand"):
         by_kernel[kind] = sum(calls[kind].values())
     by_op = {}
     for sig, n in calls["fused_mul"].items():
@@ -546,7 +711,7 @@ def profile_forward(model, xe, best_s):
     port = {}
     for e in events:
         for name in ("ring_mm_kernel", "philox_kernel", "fused_mul_kernel", "step_kernel<false>",
-                     "step_kernel<true>"):
+                     "step_kernel<true>", "seed_expand_kernel"):
             if name in e.key:
                 ms, n = port.get(name, (0.0, 0))
                 port[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -559,10 +724,11 @@ def run_forward(dev):
     from curl_tpu_torch.kernels import philox, ring_mm
     from curl_tpu_torch.models import GPT2, load_numpy_state_dict
 
-    blocks, heads = 12, 12
+    blocks, heads, d, vocab = (GPT2.GEOM[k] for k in ("num_blocks", "num_heads", "embed_dim",
+                                                      "vocab_size"))
     ct.init(world_size=2, seed=SEED)
     t0 = time.perf_counter()
-    sd = random_gpt2_state(np.random.default_rng(1234), SEQ, blocks)
+    sd = random_gpt2_state(np.random.default_rng(1234), SEQ, blocks, d=d, vocab=vocab)
     model = load_numpy_state_dict(GPT2(seq_len=SEQ), sd)
     torch.cuda.reset_peak_memory_stats()
     model.encrypt(src=0)
@@ -577,10 +743,9 @@ def run_forward(dev):
     # keeping the final-LayerNorm hidden state and recording the operand
     # layouts of every ring_mm launch
     t0 = time.perf_counter()
-    with recording_launches() as rec:
+    with recording_launches() as calls:
         h = private_hidden(model, xe)
         probs = model.softmax(model.fc(h))
-    calls = rec["ring_mm"]
     hidden = h.get_plain_text()
     probs = probs.get_plain_text()
     log(f"[forward] warm-up forward {time.perf_counter() - t0:.2f} s")
@@ -604,6 +769,7 @@ def run_forward(dev):
         if i == 2:
             rm_launches = dict(ring_mm.launches)
             ph_launches = dict(philox.launches)
+            launches, by_op, _ = read_launches()
             stats = ct.get_communication_stats()
     out = out.get_plain_text()
 
@@ -631,8 +797,8 @@ def run_forward(dev):
     # the forward's checks; main() raises on any of them once phase 5 has
     # reported too
     failures = []
-    if out.shape != (1, SEQ, 50257) or not np.isfinite(out).all():
-        failures.append(f"forward output {out.shape} is not finite (1, {SEQ}, 50257)")
+    if out.shape != (1, SEQ, vocab) or not np.isfinite(out).all():
+        failures.append(f"forward output {out.shape} is not finite (1, {SEQ}, {vocab})")
     if not np.isfinite(hidden).all():
         failures.append("final-LN hidden state is not finite")
     bound = HIDDEN_STATE_SCALE_FREE_L2
@@ -645,12 +811,11 @@ def run_forward(dev):
         failures.append(f"ring_mm launched fewer than 74 times per form: {rm_launches}")
     if sum(ph_launches.values()) == 0:
         failures.append("philox was not launched on the main path")
-    recorded = {}
-    for sig, n in calls.items():
-        recorded[len(sig)] = recorded.get(len(sig), 0) + n
-    if recorded != rm_launches:
-        failures.append(f"recorded ring_mm launches {recorded} != counted {rm_launches}")
-    forward = dict(model=model, xe=xe, ref_hidden=ref_hidden, fault_block=j)
+    if recorded_launches(calls) != (launches, by_op):
+        failures.append(f"forward recorded launches {recorded_launches(calls)} != counted "
+                        f"{(launches, by_op)}")
+    forward = dict(model=model, xe=xe, ref_hidden=ref_hidden, fault_block=j, sd=sd, tokens=tokens,
+                   calls=calls, launches=launches)
     return forward, failures
 
 
@@ -713,8 +878,9 @@ def run_bench_forward(fw):
         f"{stats_off['rounds']} rounds, {stats_off['bytes']} bytes per party")
 
     failures = []
-    if out.shape != (1, SEQ, 50257) or not np.isfinite(out).all():
-        failures.append(f"bench forward output {out.shape} is not finite (1, {SEQ}, 50257)")
+    if out.shape != (1, SEQ, model.vocab_size) or not np.isfinite(out).all():
+        failures.append(f"bench forward output {out.shape} is not finite (1, {SEQ}, "
+                        f"{model.vocab_size})")
     if not np.isfinite(hidden).all():
         failures.append("bench final-LN hidden state is not finite")
     limit = HIDDEN_STATE_SCALE_FREE_L2
@@ -722,7 +888,8 @@ def run_bench_forward(fw):
         failures.append(f"bench final-LN hidden error ({fmt_stats(sound)}) exceeds its bounds")
     if fault["scale_free_l2"] <= limit:
         failures.append(f"bench planted fault ({fmt_stats(fault)}) passes the bound {limit}")
-    missing = [k for k, n in launches.items() if n == 0]
+    # the materialized model expands no compressed share
+    missing = [k for k, n in launches.items() if n == 0 and k != "seed_expand"]
     missing += [op for op in ("mul", "square", "trunc")
                 if not any(tag.startswith(op + "+") for tag in by_op)]
     if missing:
@@ -733,7 +900,204 @@ def run_bench_forward(fw):
     for key in ("rounds", "bytes"):
         if stats[key] != stats_off[key]:
             failures.append(f"bench {key} {stats[key]} != {stats_off[key]} with the knobs off")
-    return launches, calls, failures
+    return launches, calls, failures, stats
+
+
+# ---------------------------------------------------------------------------
+# Phases 4c and 4d: seed-compressed models (GPT.build_compressed)
+# ---------------------------------------------------------------------------
+
+def drive(tag, model, xe, reps):
+    """A warm-up forward, recording the signature of every kernel launch
+    and keeping the final-LayerNorm hidden state (a hook on ``model.ln``),
+    then ``reps`` forwards; the last one runs with the launch counts,
+    CommStats and peak memory reset just before it and read just after.
+    Then one profiled forward."""
+    import curl_tpu_torch as ct
+
+    seen = []
+    hook = model.ln.register_forward_hook(lambda mod, inp, out: seen.append(out))
+    t0 = time.perf_counter()
+    try:
+        with recording_launches() as calls:
+            out = model(xe)
+    finally:
+        hook.remove()
+    hidden = seen[0].get_plain_text().reshape(out.shape[:-1] + (-1,))
+    log(f"[{tag}] warm-up forward {time.perf_counter() - t0:.2f} s")
+    lat = []
+    for i in range(reps):
+        last = i == reps - 1
+        if last:
+            reset_launches()
+            ct.reset_communication_stats()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(xe)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        if last:
+            launches, by_op, _ = read_launches()
+            stats = ct.get_communication_stats()
+            peak = torch.cuda.max_memory_allocated()
+    out = out.get_plain_text()
+    log(f"[{tag}] latencies {', '.join(f'{x:.4f}' for x in lat)} s; "
+        f"{xe.nelement() / min(lat):.1f} tokens/s (best)")
+    log(f"[{tag}] one forward: {stats['rounds']} rounds, {stats['bytes']} bytes per party")
+    log(f"[{tag}] one forward: launches {launches}; fused_mul by op {by_op}")
+    log(f"[{tag}] peak device memory {peak / 2**30:.2f} GiB in the forward, "
+        f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before it")
+    profile_forward(model, xe, min(lat))
+    failures = []
+    if not np.isfinite(out).all() or not np.isfinite(hidden).all():
+        failures.append(f"{tag} output or final-LN hidden state is not finite")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        failures.append(f"{tag} forward launched no {missing}: {launches}")
+    if recorded_launches(calls) != (launches, by_op):
+        failures.append(f"{tag} recorded launches {recorded_launches(calls)} != counted "
+                        f"{(launches, by_op)}")
+    return dict(out=out, hidden=hidden, stats=stats, launches=launches, calls=calls,
+                peak=peak), failures
+
+
+def chunked_extra_bytes(rows, d, vocab, n):
+    """Bytes per party a vocab-chunked embedding and LM head open beyond the
+    unchunked ones, at ``rows`` positions: the embedding's one-hot and
+    table deltas over the padded vocabulary; the head's input delta once
+    per chunk, its weight delta and the rescale of its logits over the
+    padded vocabulary."""
+    pad = -(-vocab // n) * n - vocab
+    embedding = (pad * rows + pad * d) * 8
+    head = ((n - 1) * rows * d + pad * d + pad * rows) * 8
+    return embedding + head
+
+
+def build_timed(tag, **kw):
+    """GPT.build_compressed(**kw) on the card: build seconds, peak memory of
+    the build and resident share bytes."""
+    from curl_tpu_torch.models import GPT
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPT.build_compressed(**kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    resident = model.resident_share_bytes()
+    log(f"[{tag}] built compressed in {secs:.1f} s: resident shares {resident / 2**30:.3f} GiB "
+        f"({resident} bytes), device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+        f"peak in the build {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return model, resident
+
+
+def run_compressed(fw, bench_stats):
+    """Phase 4c: bench.py's default GPT-2 run: phase 4's weights and tokens
+    through GPT.build_compressed(head_vocab_chunks=8) under bench.py's
+    kernel configuration."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.models import GPT2
+
+    # the materialized model is freed first, so that the peaks below are
+    # this model's own
+    materialized = fw.pop("model").resident_share_bytes()
+    ct.init(world_size=2, seed=SEED)
+    with cfg.temp_override(BENCH_CONFIG):
+        model, resident = build_timed("compressed", **GPT2.GEOM, seq_len=SEQ,
+                                      head_vocab_chunks=HEAD_CHUNKS, state_dict=fw["sd"])
+        xe = ct.cryptensor(fw["tokens"], precision=0)
+        res, failures = drive("compressed", model, xe, reps=3)
+        fault = hidden_stats(private_hidden(model, xe, skip=fw["fault_block"]).get_plain_text(),
+                             fw["ref_hidden"])
+    sound = hidden_stats(res["hidden"], fw["ref_hidden"])
+    ratio = resident / materialized
+    want_rounds = bench_stats["rounds"] + 3 * (HEAD_CHUNKS - 1)
+    d, vocab = GPT2.GEOM["embed_dim"], GPT2.GEOM["vocab_size"]
+    want_bytes = bench_stats["bytes"] + chunked_extra_bytes(SEQ, d, vocab, HEAD_CHUNKS)
+    log(f"[compressed] resident share bytes {resident} against the materialized model's "
+        f"{materialized} (phase 4b): {ratio:.4f}")
+    log(f"[compressed] rounds {res['stats']['rounds']} (phase 4b {bench_stats['rounds']} + "
+        f"{3 * (HEAD_CHUNKS - 1)}: {want_rounds}); bytes {res['stats']['bytes']} (phase 4b "
+        f"{bench_stats['bytes']} + chunk padding and per-chunk deltas: {want_bytes})")
+    log(f"[compressed] final-LN hidden: {fmt_stats(sound)} (bounds: max {HIDDEN_STATE_ATOL}, "
+        f"scale-free rel L2 {HIDDEN_STATE_SCALE_FREE_L2})")
+    log(f"[compressed] planted fault, private forward without block {fw['fault_block']}: "
+        f"{fmt_stats(fault)}")
+    limit = HIDDEN_STATE_SCALE_FREE_L2
+    if res["out"].shape != (1, SEQ, vocab):
+        failures.append(f"compressed forward output {res['out'].shape} != (1, {SEQ}, {vocab})")
+    if sound["max_abs"] > HIDDEN_STATE_ATOL or sound["scale_free_l2"] > limit:
+        failures.append(f"compressed final-LN hidden error ({fmt_stats(sound)}) exceeds its bounds")
+    if fault["scale_free_l2"] <= limit:
+        failures.append(f"compressed planted fault ({fmt_stats(fault)}) passes the bound {limit}")
+    if ratio > 0.6:
+        failures.append(f"compressed resident share bytes {ratio:.3f} of the materialized > 0.6")
+    if (res["stats"]["rounds"], res["stats"]["bytes"]) != (want_rounds, want_bytes):
+        failures.append(f"compressed rounds/bytes {res['stats']['rounds']}/{res['stats']['bytes']} "
+                        f"!= {want_rounds}/{want_bytes}")
+    return res, failures
+
+
+def run_neo(dev):
+    """Phase 4d: GPT-Neo 1.3B's geometry at full width through
+    GPT.build_compressed (chunked block linears at their default), under
+    bench.py's settings for the model."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.models import GPTNeo
+    from curl_tpu_torch.nn.module import ChunkedLinear
+
+    geom = GPTNeo.GEOM
+    d, heads, blocks, vocab = (geom[k] for k in ("embed_dim", "num_heads", "num_blocks",
+                                                 "vocab_size"))
+    sd = SeededGPTState(1234, SEQ, blocks, d, vocab)
+    tokens = np.random.default_rng(0).integers(0, 1000, size=(1, SEQ)).astype(np.float64)
+    ids = tokens.astype(np.int64)
+
+    # float64 reference on the card, the weights made once; the plaintext
+    # forward without each block picks the planted fault
+    t0 = time.perf_counter()
+    W = {k: torch.as_tensor(v, dtype=torch.float64, device=dev) for k, v in sd.items()}
+    ref = plain_gpt_forward(W, ids, heads, blocks, dev, head=False)[0].cpu().numpy()
+    skip_err = [hidden_stats(plain_gpt_forward(W, ids, heads, blocks, dev, skip=j,
+                                               head=False)[0].cpu().numpy(),
+                             ref)["scale_free_l2"] for j in range(blocks)]
+    del W
+    torch.cuda.empty_cache()
+    j = int(np.argmin(skip_err))
+    log(f"[neo] float64 reference and {blocks} plaintext forwards with one block left out in "
+        f"{time.perf_counter() - t0:.1f} s; scale-free rel L2 without one block: min "
+        f"{skip_err[j]:.5f} (block {j}), max {max(skip_err):.5f}")
+
+    ct.init(world_size=2, seed=SEED)
+    with cfg.temp_override(dict(BENCH_CONFIG, **{"models.head_chunk_positions": SEQ})):
+        model, resident = build_timed("neo", **geom, seq_len=SEQ, head_vocab_chunks=HEAD_CHUNKS,
+                                      state_dict=sd)
+        chunked = sum(isinstance(m, ChunkedLinear) for m in model.blocks.modules())
+        xe = ct.cryptensor(tokens, precision=0)
+        res, failures = drive("neo", model, xe, reps=2)
+        fault = hidden_stats(private_hidden(model, xe, skip=j).get_plain_text(), ref)
+    sound = hidden_stats(res["hidden"], ref)
+    log(f"[neo] {chunked} ChunkedLinear modules in the blocks; resident share bytes {resident} "
+        f"({resident / 2**30:.3f} GiB)")
+    log(f"[neo] final-LN hidden: {fmt_stats(sound)} (bounds: max {HIDDEN_STATE_ATOL}, "
+        f"scale-free rel L2 {NEO_SCALE_FREE_L2})")
+    log(f"[neo] planted fault, private forward without block {j}: {fmt_stats(fault)}")
+    if res["out"].shape != (1, SEQ, vocab):
+        failures.append(f"neo forward output {res['out'].shape} != (1, {SEQ}, {vocab})")
+    if chunked != 3 * blocks:
+        failures.append(f"neo has {chunked} ChunkedLinear modules, not {3 * blocks}")
+    if sound["max_abs"] > HIDDEN_STATE_ATOL or sound["scale_free_l2"] > NEO_SCALE_FREE_L2:
+        failures.append(f"neo final-LN hidden error ({fmt_stats(sound)}) exceeds its bounds")
+    if fault["scale_free_l2"] <= NEO_SCALE_FREE_L2:
+        failures.append(f"neo planted fault ({fmt_stats(fault)}) passes the bound "
+                        f"{NEO_SCALE_FREE_L2}")
+    del model
+    torch.cuda.empty_cache()
+    return res, failures
 
 
 # ---------------------------------------------------------------------------
@@ -745,143 +1109,163 @@ def _distinct_numel(shape, stride):
     return math.prod(n for n, st in zip(shape, stride) if st != 0)
 
 
-def check_path_ring_mm(calls, dev, gen):
-    """Every (shapes, strides) signature the forward passed to ring_mm, on
-    fresh random operands of the same layout: bit-exact against plain, then
-    timed; the forward's ring_mm time is each signature's time times its
-    launches, split by form, shape and layout."""
+# The kernels of the JSON line: (name, the recorded kind, which of its
+# signatures, the TPU kernel it replaces, its source)
+PATH_KERNELS = (
+    ("ring_mm", "ring_mm", lambda sig: len(sig) == 1, "curl_tpu/ops/pallas_ring_mm.py:149",
+     "curl_tpu_torch/csrc/ring_mm.cu"),
+    ("ring_mm_acc", "ring_mm", lambda sig: len(sig) == 2, "curl_tpu/ops/pallas_ring_mm.py:324",
+     "curl_tpu_torch/csrc/ring_mm.cu"),
+    ("philox", "philox", None, "curl_tpu/ops/pallas_przs.py:218 (_build2d; 1-D: :60 _build)",
+     "curl_tpu_torch/csrc/philox.cu"),
+    ("fused_mul", "fused_mul", None, "curl_tpu/ops/pallas_mul.py:177",
+     "curl_tpu_torch/csrc/fused_mul.cu"),
+    ("ltz", "ltz", None, "curl_tpu/ops/pallas_max_step.py:346", "curl_tpu_torch/csrc/max_step.cu"),
+    ("max_step", "max_step", None, "curl_tpu/ops/pallas_max_step.py:223",
+     "curl_tpu_torch/csrc/max_step.cu"),
+    ("seed_expand", "seed_expand", None, "curl_tpu/ops/pallas_rng.py:43",
+     "curl_tpu_torch/csrc/seed_expand.cu"),
+)
+# this slice's main path, whose launches and milliseconds the JSON line's
+# top-level numbers are
+MAIN_PATH = "compressed"
+
+
+def time_ring_mm(sig, dev, gen):
+    """One (shapes, strides) signature of ring_mm on fresh random operands
+    of the same layout: bit-exact against plain; its time (L2-cold), on
+    contiguous copies (what the layout costs), plain, and bounds."""
     from curl_tpu_torch.kernels import ring_mm
 
-    rows = []
-    for sig, count in calls.items():
-        pairs = [(_strided_i64(gen, sa, st_a, dev), _strided_i64(gen, sb, st_b, dev))
-                 for sa, st_a, sb, st_b in sig]
-        got = ring_mm.ring_mm(pairs)
-        if not torch.equal(got, ring_mm.plain(pairs)):
-            raise AssertionError(f"ring_mm at the path layout {sig}: kernel != plain")
-        ms = cuda_ms(lambda: ring_mm.ring_mm(pairs), 3)
-        # the same product on contiguous operands: what the layout costs
-        dense = [(a.contiguous(), b.contiguous()) for a, b in pairs]
-        dense_ms = cuda_ms(lambda: ring_mm.ring_mm(dense), 3)
-        plain_ms = cuda_ms(lambda: ring_mm.plain(pairs), 1)
-        nbytes = sum(_distinct_numel(sa, st_a) + _distinct_numel(sb, st_b)
-                     for sa, st_a, sb, st_b in sig) * 8 + got.numel() * 8
-        macs = sum(got.numel() * sa[-1] for sa, _, _, _ in sig)
-        rows.append(dict(sig=sig, count=count, ms=ms, dense_ms=dense_ms, plain_ms=plain_ms,
-                         t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
-                         t_ops=36 * 2 * macs / INT8_OPS_PER_S * 1e3))
-        del pairs, dense, got
-        torch.cuda.empty_cache()
-
-    entries = []
-    for name, n_pairs, replaces in (("ring_mm", 1, "curl_tpu/ops/pallas_ring_mm.py:149"),
-                                    ("ring_mm_acc", 2, "curl_tpu/ops/pallas_ring_mm.py:324")):
-        form = sorted((r for r in rows if len(r["sig"]) == n_pairs),
-                      key=lambda r: -r["ms"] * r["count"])
-        tot = {k: sum(r[k] * r["count"] for r in form)
-               for k in ("ms", "dense_ms", "plain_ms", "t_bytes", "t_ops")}
-        for r in form:
-            layout = " + ".join(f"{sa}{st_a}@{sb}{st_b}" for sa, st_a, sb, st_b in r["sig"])
-            log(f"[path] {name} x{r['count']}: {r['ms']:.3f} ms each, "
-                f"{r['ms'] * r['count']:.2f} ms a forward "
-                f"({r['ms'] * r['count'] / tot['ms']:.1%}); contiguous {r['dense_ms']:.3f} ms; "
-                f"bound {max(r['t_bytes'], r['t_ops']):.4f} ms; plain {r['plain_ms']:.2f} ms; "
-                f"shapes(strides) {layout}")
-        bound, by = ((tot["t_bytes"], "bytes") if tot["t_bytes"] >= tot["t_ops"]
-                     else (tot["t_ops"], "operations"))
-        log(f"[path] {name}: one forward's {sum(r['count'] for r in form)} launches over "
-            f"{len(form)} layouts, bit-exact vs plain: {tot['ms']:.2f} ms "
-            f"(on contiguous operands {tot['dense_ms']:.2f} ms; bound {bound:.3f} ms by {by}; "
-            f"plain {tot['plain_ms']:.1f} ms)")
-        entries.append(dict(
-            name=name, route="cuda", source="curl_tpu_torch/csrc/ring_mm.cu", replaces=replaces,
-            shape=f"one forward: every launch, {len(form)} layouts",
-            max_abs_err=0, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bound, bound_by=by,
-            library_ms=None,
-        ))
-    return entries
+    pairs = [(_strided_i64(gen, sa, st_a, dev), _strided_i64(gen, sb, st_b, dev))
+             for sa, st_a, sb, st_b in sig]
+    got = ring_mm.ring_mm(pairs)
+    if not torch.equal(got, ring_mm.plain(pairs)):
+        raise AssertionError(f"ring_mm at the path layout {sig}: kernel != plain")
+    dense = [(a.contiguous(), b.contiguous()) for a, b in pairs]
+    nbytes = sum(_distinct_numel(sa, st_a) + _distinct_numel(sb, st_b)
+                 for sa, st_a, sb, st_b in sig) * 8 + got.numel() * 8
+    macs = sum(got.numel() * sa[-1] for sa, _, _, _ in sig)
+    return dict(ms=cuda_ms(lambda: ring_mm.ring_mm(pairs), 3, cold=True),
+                dense_ms=cuda_ms(lambda: ring_mm.ring_mm(dense), 3, cold=True),
+                plain_ms=cuda_ms(lambda: ring_mm.plain(pairs), 1, cold=True),
+                t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                t_ops=36 * 2 * macs / INT8_OPS_PER_S * 1e3)
 
 
-def _path_entry(name, replaces, rows, source):
-    """One kernel's JSON entry from its timed signatures: time, plain time
-    and bound summed over the forward's launches."""
-    tot = {k: sum(r[k] * r["count"] for r in rows) for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
-    b, by = (tot["t_bytes"], "bytes") if tot["t_bytes"] >= tot["t_ops"] else (tot["t_ops"],
-                                                                            "operations")
-    log(f"[path] {name}: one forward's {sum(r['count'] for r in rows)} launches over "
-        f"{len(rows)} signatures, bit-exact vs plain: {tot['ms']:.3f} ms "
-        f"(bound {b:.4f} ms by {by}; plain {tot['plain_ms']:.1f} ms)")
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                shape=f"one forward: every launch, {len(rows)} signatures", max_abs_err=0,
-                ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by, library_ms=None)
-
-
-def _log_rows(name, rows, describe, top=12):
-    total = sum(r["ms"] * r["count"] for r in rows) or 1.0
-    for r in sorted(rows, key=lambda r: -r["ms"] * r["count"])[:top]:
-        b = max(r["t_bytes"], r["t_ops"])
-        log(f"[path] {name} x{r['count']}: {r['ms']:.4f} ms each, "
-            f"{r['ms'] * r['count']:.3f} ms a forward ({r['ms'] * r['count'] / total:.1%}); "
-            f"bound {b:.5f} ms; plain {r['plain_ms']:.3f} ms; {describe(r['sig'])}")
-
-
-def check_path_philox(calls, dev, gen):
-    """Every (mode, rows, n, kbits, src) the forward passed to philox, on
-    fresh keys and plaintexts: bit-exact against plain, timed."""
+def time_philox(sig, dev, gen):
+    """One (mode, rows, n, kbits, src) of philox on fresh keys and
+    plaintexts: bit-exact against plain, timed (L2-cold)."""
     from curl_tpu_torch.kernels import philox
 
-    rows = []
-    for sig, count in calls.items():
-        mode, nkeys, n, kbits, src = sig
-        plain = None
-        if mode == "share":
-            plain = rand_i64(gen, (n,), dev)
-        elif mode == "share_lane":
-            plain = rand_i64(gen, (nkeys, n), dev)
-        kw = dict(keys=[0x0123456789ABCDEF + 7919 * i for i in range(nkeys)], counter=3, n=n,
-                  plain=plain, src=src, kbits=kbits, device=dev)
-        got = philox.philox(mode, **kw)
-        if not torch.equal(got, philox.plain_philox(mode, **kw)):
-            raise AssertionError(f"philox at the path signature {sig}: kernel != plain")
-        nbytes = (got.numel() + (plain.numel() if plain is not None else 0)) * 8
-        rows.append(dict(sig=sig, count=count, ms=cuda_ms(lambda: philox.philox(mode, **kw), 5),
-                         plain_ms=cuda_ms(lambda: philox.plain_philox(mode, **kw), 1),
-                         t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
-                         t_ops=nkeys * (n + 1) // 2 * PHILOX_OPS / INT32_OPS_PER_S * 1e3))
-        del got, plain
-    _log_rows("philox", rows, lambda s: f"{s[0]} rows {s[1]} n {s[2]} kbits {s[3]}")
-    return _path_entry("philox", "curl_tpu/ops/pallas_przs.py:218 (_build2d; 1-D: :60 _build)",
-                       rows, "curl_tpu_torch/csrc/philox.cu")
+    mode, nkeys, n, kbits, src = sig
+    plain = None
+    if mode == "share":
+        plain = rand_i64(gen, (n,), dev)
+    elif mode == "share_lane":
+        plain = rand_i64(gen, (nkeys, n), dev)
+    kw = dict(keys=[0x0123456789ABCDEF + 7919 * i for i in range(nkeys)], counter=3, n=n,
+              plain=plain, src=src, kbits=kbits, device=dev)
+    got = philox.philox(mode, **kw)
+    if not torch.equal(got, philox.plain_philox(mode, **kw)):
+        raise AssertionError(f"philox at the path signature {sig}: kernel != plain")
+    nbytes = (got.numel() + (plain.numel() if plain is not None else 0)) * 8
+    return dict(ms=cuda_ms(lambda: philox.philox(mode, **kw), 5, cold=True),
+                plain_ms=cuda_ms(lambda: philox.plain_philox(mode, **kw), 1, cold=True),
+                t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                t_ops=nkeys * (n + 1) // 2 * PHILOX_OPS / INT32_OPS_PER_S * 1e3)
 
 
-def check_path_fused(calls, dev, gen):
-    """Every launch signature the forward passed to fused_mul, ltz and
-    max_step, on fresh operands of the same shapes and strides: bit-exact
-    against plain, timed, summed over the forward's launches."""
-    entries = []
-    for kind, replaces, source in (
-            ("fused_mul", "curl_tpu/ops/pallas_mul.py:177", "curl_tpu_torch/csrc/fused_mul.cu"),
-            ("ltz", "curl_tpu/ops/pallas_max_step.py:346", "curl_tpu_torch/csrc/max_step.cu"),
-            ("max_step", "curl_tpu/ops/pallas_max_step.py:223",
-             "curl_tpu_torch/csrc/max_step.cu")):
-        rows = []
-        for i, (sig, count) in enumerate(calls[kind].items()):
-            spec = fused_spec(kind, sig)
-            ops = [_strided_i64(gen, shape, st, dev) for shape, st in spec["operands"]]
-            got = fused_run(spec, ops, i)
-            if not torch.equal(got, fused_run(spec, ops, i, plain=True)):
-                raise AssertionError(f"{fused_name(spec)} at the path signature {sig}: "
-                                     "kernel != plain")
-            nbytes, nops = fused_work(spec)
-            rows.append(dict(sig=sig, count=count, ms=cuda_ms(lambda: fused_run(spec, ops, i), 5),
-                             plain_ms=cuda_ms(lambda: fused_run(spec, ops, i, plain=True), 1),
-                             t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
-                             t_ops=nops / INT32_OPS_PER_S * 1e3))
-            del ops, got
-        torch.cuda.empty_cache()
-        _log_rows(kind, rows, lambda s: " ".join(str(x) for x in s))
-        entries.append(_path_entry(kind, replaces, rows, source))
-    return entries
+def time_fused(kind, sig, count, dev, gen):
+    """One launch signature of fused_mul, ltz or max_step on fresh operands
+    of the same shapes and strides: bit-exact against plain, timed
+    (L2-cold)."""
+    spec = fused_spec(kind, sig)
+    ops = [_strided_i64(gen, shape, st, dev) for shape, st in spec["operands"]]
+    got = fused_run(spec, ops, count)
+    if not torch.equal(got, fused_run(spec, ops, count, plain=True)):
+        raise AssertionError(f"{fused_name(spec)} at the path signature {sig}: kernel != plain")
+    nbytes, nops = fused_work(spec)
+    return dict(ms=cuda_ms(lambda: fused_run(spec, ops, count), 5, cold=True),
+                plain_ms=cuda_ms(lambda: fused_run(spec, ops, count, plain=True), 1, cold=True),
+                t_bytes=nbytes / HBM_BYTES_PER_S * 1e3, t_ops=nops / INT32_OPS_PER_S * 1e3)
+
+
+def time_seed(sig, dev, gen):
+    """One (mode, elements, parties) of seed_expand on fresh shares:
+    bit-exact against plain, timed (L2-cold)."""
+    mode, n, _ = sig
+    x = rand_i64(gen, (n,), dev)
+    got = seed_run(mode, x)
+    if not torch.equal(got, seed_run(mode, x, plain=True)):
+        raise AssertionError(f"seed_expand at the path signature {sig}: kernel != plain")
+    nbytes, nops = seed_work(mode, n)
+    return dict(ms=cuda_ms(lambda: seed_run(mode, x), 5, cold=True),
+                plain_ms=cuda_ms(lambda: seed_run(mode, x, plain=True), 1, cold=True),
+                t_bytes=nbytes / HBM_BYTES_PER_S * 1e3, t_ops=nops / INT32_OPS_PER_S * 1e3)
+
+
+def time_signatures(paths, dev, gen):
+    """Every launch signature any path recorded, once: {kind: {sig: row}}."""
+    union = {kind: {} for kind in ("ring_mm", "philox", "fused_mul", "ltz", "max_step",
+                                   "seed_expand")}
+    for calls in paths.values():
+        for kind, sigs in calls.items():
+            for sig in sigs:
+                union[kind].setdefault(sig, None)
+    rows = {}
+    for kind, sigs in union.items():
+        rows[kind] = {}
+        for i, sig in enumerate(sigs):
+            if kind == "ring_mm":
+                rows[kind][sig] = time_ring_mm(sig, dev, gen)
+            elif kind == "philox":
+                rows[kind][sig] = time_philox(sig, dev, gen)
+            elif kind == "seed_expand":
+                rows[kind][sig] = time_seed(sig, dev, gen)
+            else:
+                rows[kind][sig] = time_fused(kind, sig, i, dev, gen)
+            torch.cuda.empty_cache()
+        log(f"[path] {kind}: {len(sigs)} launch signatures over the paths "
+            f"{', '.join(paths)}, each bit-exact vs plain")
+    return rows
+
+
+def _describe(kind, sig):
+    if kind == "ring_mm":
+        return "shapes(strides) " + " + ".join(f"{sa}{st_a}@{sb}{st_b}" for sa, st_a, sb, st_b in sig)
+    if kind == "philox":
+        return f"{sig[0]} rows {sig[1]} n {sig[2]} kbits {sig[3]}"
+    if kind == "seed_expand":
+        return f"{sig[0]} n {sig[1]} parties {sig[2]}"
+    return " ".join(str(x) for x in sig)
+
+
+def path_totals(path, calls, rows, top=8):
+    """Each kernel's launches, time, plain time and bound summed over one
+    path's recorded launches; its largest signatures logged."""
+    out = {}
+    for name, kind, keep, _, _ in PATH_KERNELS:
+        mine = [(sig, n, rows[kind][sig]) for sig, n in calls[kind].items()
+                if keep is None or keep(sig)]
+        if not mine:
+            continue
+        tot = {k: sum(r[k] * n for _, n, r in mine) for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
+        for sig, n, r in sorted(mine, key=lambda m: -m[2]["ms"] * m[1])[:top]:
+            dense = f"; contiguous {r['dense_ms']:.4f} ms" if "dense_ms" in r else ""
+            log(f"[path] {path} {name} x{n}: {r['ms']:.4f} ms each, {r['ms'] * n:.3f} ms a forward "
+                f"({r['ms'] * n / (tot['ms'] or 1.0):.1%}){dense}; bound "
+                f"{max(r['t_bytes'], r['t_ops']):.5f} ms; plain {r['plain_ms']:.3f} ms; "
+                f"{_describe(kind, sig)}")
+        b, by = ((tot["t_bytes"], "bytes") if tot["t_bytes"] >= tot["t_ops"]
+                 else (tot["t_ops"], "operations"))
+        launches = sum(n for _, n, _ in mine)
+        log(f"[path] {path} {name}: one forward's {launches} launches over {len(mine)} "
+            f"signatures: {tot['ms']:.3f} ms (bound {b:.4f} ms by {by}; "
+            f"plain {tot['plain_ms']:.1f} ms)")
+        out[name] = dict(launches=launches, signatures=len(mine), ms=tot["ms"],
+                         plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by)
+    return out
 
 
 def main():
@@ -908,27 +1292,58 @@ def main():
     check_philox(dev, gen)
     torch.cuda.empty_cache()
     check_fused(dev, gen)
+    check_seed(dev, gen)
 
-    forward, failures = run_forward(dev)
-    launches, calls, bench_failures = run_bench_forward(forward)
-    failures += bench_failures
-    del forward
-    torch.cuda.empty_cache()
-    kernels = (check_path_ring_mm(calls["ring_mm"], dev, gen)
-               + [check_path_philox(calls["philox"], dev, gen)]
-               + check_path_fused(calls, dev, gen))
+    kernels, failures = run_paths(dev, gen)
     if failures:
         raise AssertionError("; ".join(failures))
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "shape")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+def run_paths(dev, gen):
+    """Phases 4-5: each path's forward, then every launch signature any of
+    them recorded, held bit-exact and timed; (the kernels' JSON entries,
+    the failed checks)."""
+    # each path: the signatures its warm-up forward recorded, and the launch
+    # counts of one forward, reset just before it and read just after
+    forward, failures = run_forward(dev)
+    paths = {"forward": (forward.pop("calls"), forward.pop("launches"))}
+    launches, calls, bench_failures, bench_stats = run_bench_forward(forward)
+    failures += bench_failures
+    paths["bench"] = (calls, launches)
+    compressed, comp_failures = run_compressed(forward, bench_stats)
+    failures += comp_failures
+    paths["compressed"] = (compressed["calls"], compressed["launches"])
+    del forward, compressed
+    torch.cuda.empty_cache()
+    neo, neo_failures = run_neo(dev)
+    failures += neo_failures
+    paths["neo"] = (neo["calls"], neo["launches"])
+    del neo
+
+    # phase 5: every signature of every path held bit-exact and timed once,
+    # then summed over each path's launches
+    rows = time_signatures({p: c for p, (c, _) in paths.items()}, dev, gen)
+    totals = {p: path_totals(p, c, rows) for p, (c, _) in paths.items()}
+    kernels = []
+    for name, _, _, replaces, source in PATH_KERNELS:
+        main = totals[MAIN_PATH].get(name)
+        if main is None:  # the main path's check has failed already
+            continue
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=paths[MAIN_PATH][1][name], max_abs_err=0, ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=None,
+            shape=f"one phase 4c forward: every launch, {main['signatures']} signatures",
+            paths={p: dict(t[name], launches=paths[p][1][name])
+                   for p, t in totals.items() if name in t}))
+    return kernels, failures
 
 
 if __name__ == "__main__":

@@ -48,7 +48,8 @@ def _structure_ops():
         return self.with_share(self.share.transpose(_ax(dim0), _ax(dim1)))
 
     def t(self):
-        return self if self.share.dim() < 3 else self.with_share(self.share.transpose(-1, -2))
+        # ndim, not share.dim(): reading a compressed tensor's share expands it
+        return self if self.ndim < 2 else self.with_share(self.share.transpose(-1, -2))
 
     def permute(self, *dims):
         nd = self.share.dim() - 1

@@ -27,7 +27,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "curl_tpu_torch")
-KERNELS = ("ring_mm", "philox", "fused_mul", "max_step")
+KERNELS = ("ring_mm", "philox", "fused_mul", "max_step", "seed_expand")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,1 +1,1 @@
-from .gpt import GPT, GPT2, load_numpy_state_dict  # noqa: F401
+from .gpt import GPT, GPT2, GPTNeo, load_numpy_state_dict  # noqa: F401

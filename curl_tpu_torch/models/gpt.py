@@ -2,17 +2,65 @@
 
 Pre-LN transformer blocks with the fused Attention module and a GELU FFN,
 the private embedding lookup, a final LayerNorm, the LM head and a softmax
-over the vocabulary. This slice runs the forward with
-``models.head_chunk_positions: 0`` (the shipped config) and materialized
-shares; the blocks run as a plain loop where the JAX package scans them.
+over the vocabulary. The blocks run as a plain loop where the JAX package
+scans them. ``GPT.build_compressed`` builds the seed-compressed model that
+bench.py runs (GPT-2, and GPT-Neo 1.3B's geometry): vocab-chunked embedding
+and LM head, and at 1024 wide and above chunked block linears.
+``models.head_chunk_positions`` runs the embedding and the head over chunks
+of positions; the Beaver-masked weight reuse the JAX package applies then to
+materialized weights (``_premask_linear``, MaskedArithmetic) is not ported,
+so that case raises.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from .. import nn
+from .. import random as rng
+from ..config import cfg
+from ..mpc.mpc import MPCTensor
+from ..mpc.primitives import beaver
+from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
+
+
+class ChunkedEmbedding(nn.Module):
+    """Embedding over a vocab-sliced seed-compressed table (gpt.py:75): the
+    one-hot is built once over the padded vocabulary, then one Beaver
+    product per slice (``beaver.evaluate_embed_chunked``)."""
+
+    def __init__(self, weight, n_chunks):
+        super().__init__()
+        self.vocab, self.embed_dim = weight.shape
+        chunks, _, self.v_pad = nn.module.stack_compressed_chunks(
+            weight, n_chunks, 0, rng.compressed_master(rng.EMBED)
+        )
+        self.register_param("tchunks", chunks)
+
+    def forward(self, x):
+        chunks = [t._tensor for t in self._params["tchunks"]]
+        out = beaver.evaluate_embed_chunked(x._tensor, chunks, self.vocab, self.embed_dim)
+        return MPCTensor(ArithmeticSharedTensor(out.share, chunks[0].encoder))
+
+
+def _install(module, sd, prefix="", keys=None):
+    """Install ``sd[prefix + key]`` (numpy arrays) as the float64 parameter
+    ``key`` of ``module``, for each of ``keys`` (default: every parameter
+    key of the module)."""
+    params = module.state_dict()
+    for key in params if keys is None else keys:
+        own = params[key]
+        arr = np.asarray(sd[prefix + key], dtype=np.float64)
+        if tuple(arr.shape) != tuple(own.shape):
+            raise ValueError(f"{prefix + key}: shape {arr.shape} != {tuple(own.shape)}")
+        *path, name = key.split(".")
+        mod = module
+        for part in path:
+            mod = getattr(mod, part)
+        mod._params[name] = torch.from_numpy(np.array(arr))
 
 
 class GPT(nn.Module):
@@ -48,9 +96,38 @@ class GPT(nn.Module):
             self.fc = nn.Linear(embed_dim, vocab_size)
             self.softmax = nn.Softmax(-1)
 
+    @staticmethod
+    def _head_chunk() -> int:
+        """cfg.models.head_chunk_positions: positions per chunk of the
+        embedding and LM-head stages (0 = off)."""
+        try:
+            return int(cfg.models.head_chunk_positions)
+        except (AttributeError, TypeError, ValueError):
+            return 0
+
+    @staticmethod
+    def _refuse_premask(module):
+        """The JAX package Beaver-masks a materialized weight once before a
+        chunk loop reuses it (gpt.py:219-240); that is not ported."""
+        w = module._params.get("weight")
+        if isinstance(w, MPCTensor) and type(w._tensor) is ArithmeticSharedTensor:
+            raise NotImplementedError(
+                "models.head_chunk_positions on materialized weights needs the "
+                "Beaver-masked weight reuse (MaskedArithmetic), which is not ported yet; "
+                "use GPT.build_compressed or head_chunk_positions 0"
+            )
+
     def embed(self, x):
         """Token ids (encrypted, precision 0, shape (b, t)) -> hidden state."""
-        tok = self.tok_embed(x)
+        if x.dim() == 2:
+            b, t = x.shape
+            chunk = self._head_chunk()
+            if nn.module.splits(b * t, chunk):
+                self._refuse_premask(self.tok_embed)
+            tok = nn.module.scan_chunked(self.tok_embed, x.reshape(b * t), chunk)
+            tok = tok.reshape(b, t, self.embed_dim)
+        else:
+            tok = self.tok_embed(x)
         return tok + self._params["pos_embed"][:, : x.shape[1], :]
 
     def forward(self, x):
@@ -59,8 +136,97 @@ class GPT(nn.Module):
         for block in self.blocks:
             x = block(x)
         if self.full:
-            x = self.softmax(self.fc(self.ln(x)))
+            b, t, d = x.shape
+            chunk = self._head_chunk()
+            if nn.module.splits(b * t, chunk):
+                self._refuse_premask(self.fc)
+
+            def head(rows):
+                return self.softmax(self.fc(self.ln(rows)))
+
+            x = nn.module.scan_chunked(head, x.reshape(b * t, d), chunk)
+            x = x.reshape(b, t, self.vocab_size)
         return x
+
+    @classmethod
+    def build_compressed(cls, embed_dim, num_heads, num_blocks, vocab_size, seq_len,
+                         head_vocab_chunks=8, chunk_block_linears=None, state_dict=None):
+        """An encrypted GPT whose parameters are seed-compressed and never
+        all materialize (gpt.py:257-363).
+
+        ``state_dict``: plaintext numpy arrays under the materialized
+        model's keys (``load_numpy_state_dict``'s), any mapping; without
+        one, the weights are drawn in the JAX package's distributions from
+        the session's generator. Each block is built, compressed and its
+        plaintext freed in turn, so peak memory stays about one block's
+        plaintext above the final footprint. The LM head and the embedding
+        take ``head_vocab_chunks`` vocab slices (a ``ChunkedLinear`` over
+        output features, the JAX package's ChunkedLMHead, and
+        ``ChunkedEmbedding``); ``chunk_block_linears`` (default: at 1024
+        wide and above) replaces each block's QKV and FFN linears with
+        ``ChunkedLinear``s of (d, d) chunks."""
+        sd = state_dict
+        d = embed_dim
+        if chunk_block_linears is None:
+            # at 1024 wide and above the (d, 4d) weights' Beaver transients
+            # are taken one (d, d) chunk at a time
+            chunk_block_linears = embed_dim >= 1024
+        no_init = nn.module.skip_init if sd is not None else contextlib.nullcontext
+        if sd is not None:
+            with no_init():
+                block_keys = list(GPT.Block(d, num_heads).state_dict())
+            want = {"tok_embed.weight", "pos_embed", "ln.weight", "ln.bias", "fc.weight",
+                    "fc.bias"}
+            want |= {f"blocks.{i}.{k}" for i in range(num_blocks) for k in block_keys}
+            missing, extra = sorted(want - set(sd)), sorted(set(sd) - want)
+            if missing or extra:
+                raise KeyError(f"state dict mismatch: missing {missing[:5]}, "
+                               f"unexpected {extra[:5]}")
+
+        model = GPT(d, num_heads, 0, vocab_size, seq_len, full=False)
+        model.full = True
+        model.num_blocks = num_blocks
+
+        for i in range(num_blocks):
+            with no_init():
+                blk = GPT.Block(d, num_heads)
+            if sd is not None:
+                _install(blk, sd, f"blocks.{i}.")
+            if chunk_block_linears:
+                _chunk_block_linears(blk)
+            blk.encrypt(seed_compress=True)
+            model.blocks.add_module(str(i), blk)
+
+        with no_init():
+            model.fc = nn.Linear(d, vocab_size)
+            model.tok_embed = nn.Embedding(vocab_size, d)
+            model.ln = nn.LayerNorm(d)
+        model.register_param("pos_embed", torch.zeros((1, seq_len, d), dtype=torch.float64))
+        if sd is not None:
+            # in state-dict order within each part: a mapping that makes its
+            # arrays part by part makes each part once
+            for name in ("fc", "ln", "tok_embed"):
+                _install(getattr(model, name), sd, f"{name}.")
+            _install(model, sd, keys=["pos_embed"])
+        fc = model.fc._params
+        model.fc = nn.module.ChunkedLinear(fc["weight"], fc["bias"], head_vocab_chunks, 0,
+                                           tag=rng.HEAD)
+        model.tok_embed = ChunkedEmbedding(model.tok_embed._params["weight"], head_vocab_chunks)
+        model.softmax = nn.Softmax(-1)
+        # the rest (pos_embed, the final LayerNorm, the head's bias)
+        return model.encrypt(seed_compress=True)
+
+
+def _chunk_block_linears(blk):
+    """Replace a block's QKV and FFN linears with ChunkedLinears of (d, d)
+    chunks (gpt.py:309-332): the QKV (3 chunks) and the FFN up projection
+    (4) by output features, the FFN down projection (4) by input features."""
+    def chunked(lin, n, axis):
+        return nn.module.ChunkedLinear(lin._params["weight"], lin._params.get("bias"), n, axis)
+
+    blk.attn.search = chunked(blk.attn.search, 3, 0)
+    blk.ff._modules["0"] = chunked(blk.ff._modules["0"], 4, 0)
+    blk.ff._modules["2"] = chunked(blk.ff._modules["2"], 4, 1)
 
 
 class GPT2(GPT):
@@ -68,6 +234,15 @@ class GPT2(GPT):
 
     def __init__(self, seq_len, full=True):
         super().__init__(seq_len=seq_len, full=full, **GPT2.GEOM)
+
+
+class GPTNeo(GPT):
+    """GPT-Neo 1.3B's geometry (gpt.py:420-426); built compressed."""
+
+    GEOM = dict(embed_dim=2048, num_heads=16, num_blocks=24, vocab_size=50257)
+
+    def __init__(self, seq_len, full=True):
+        super().__init__(seq_len=seq_len, full=full, **GPTNeo.GEOM)
 
 
 def load_numpy_state_dict(model: nn.Module, sd) -> nn.Module:
@@ -81,13 +256,5 @@ def load_numpy_state_dict(model: nn.Module, sd) -> nn.Module:
     extra = sorted(set(sd) - set(own))
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing {missing[:5]}, unexpected {extra[:5]}")
-    for key, value in sd.items():
-        arr = np.asarray(value, dtype=np.float64)
-        if tuple(arr.shape) != tuple(own[key].shape):
-            raise ValueError(f"{key}: shape {arr.shape} != {tuple(own[key].shape)}")
-        *path, name = key.split(".")
-        mod = model
-        for part in path:
-            mod = getattr(mod, part)
-        mod._params[name] = torch.from_numpy(arr.copy())
+    _install(model, sd)
     return model

@@ -10,6 +10,7 @@ the same rounds and bytes as there:
   evaluate_lut      1 reveal, any table size
   evaluate_bior_lut 1 reveal + 1 Beaver mul + 1 EGK trunc
   evaluate_embed    1 reveal + 1 Beaver matmul
+  evaluate_embed_chunked  1 reveal + 1 Beaver matmul per vocab chunk
   AND               1 batched reveal
   B2A_single_bit    1 reveal
 
@@ -19,7 +20,7 @@ computed once. The LUTs and the embedding take the JAX package's TFP
 gather forms (its ``lut_fastpath``/``fused_onehot`` defaults). Not ported in
 this slice: the reference's tuple one-hot forms (and with them the private
 embedding of more than two parties), the Beaver-masked operand reuse
-(MaskedArithmetic), the vocab-chunked embedding, active security.
+(MaskedArithmetic), active security.
 """
 
 from __future__ import annotations
@@ -201,6 +202,34 @@ def evaluate_embed(x, embed):
     )
     out_shape = x.share.shape + (dim,)
     return ArithmeticSharedTensor(lookup.share.reshape(out_shape), FixedPointEncoder(0))
+
+
+def evaluate_embed_chunked(x, table_chunks, v_real: int, dim: int):
+    """Private embedding lookup against a vocab-sliced secret table
+    (beaver.py:635). The lookup factorizes over vocab slices,
+
+        onehot @ T = sum_i onehot[:, i*Vc:(i+1)*Vc] @ T_i,
+
+    so the rotated one-hot is built once over the padded vocabulary
+    n * Vc (one reveal), then each chunk runs one Beaver matmul and the
+    shares accumulate. ``table_chunks``: n (Vc, dim) shared tensors (plain
+    or seed-compressed), whose vocab padding rows are zero. The JAX
+    package's scan is a loop here; every chunk's draws take fresh counts."""
+    if comm.get_world_size() != 2:
+        raise NotImplementedError("the private embedding of more than two parties is not ported yet")
+    vc = table_chunks[0].shape[0]
+    v_pad = len(table_chunks) * vc
+    if v_real > v_pad:
+        raise ValueError(f"vocabulary {v_real} exceeds the {len(table_chunks)} chunks of {vc}")
+    rotated = _rotated_onehot_fast(_flat(x), v_pad)
+    acc = None
+    for i, t_i in enumerate(table_chunks):
+        part = matmul(
+            ArithmeticSharedTensor(rotated[:, :, i * vc:(i + 1) * vc], FixedPointEncoder(0)),
+            _raw(t_i),
+        ).share
+        acc = part if acc is None else acc + part
+    return ArithmeticSharedTensor(acc.reshape(x.share.shape + (dim,)), FixedPointEncoder(0))
 
 
 # ---------------------------------------------------------------------------

@@ -8,18 +8,31 @@ leading axis. ``state_dict`` uses the JAX package's key names. Initial
 values follow the JAX package's distributions (Linear weight and bias
 uniform in +-1/sqrt(fan_in), Embedding standard normal, LayerNorm 1 and 0),
 drawn from the session's explicit torch.Generator.
+
+Seed-compressed parameters (``encrypt(seed_compress=True)``, 2 parties,
+inference): each keeps share0 and a key (``mpc/primitives/compressed.py``).
+``ChunkedLinear`` holds a weight as equal compressed chunks, one key each,
+and runs one product per chunk. The JAX package's ``PrestackedBlocks`` and
+its donated ``_write`` are not ported: they keep XLA from stacking the
+blocks' parameters inside the compiled graph, which would double the device
+memory. Eager PyTorch stacks nothing; ``GPT.build_compressed`` builds,
+compresses and frees the blocks one at a time and keeps them as a
+``Sequential``, which gives the same peak. ``scan_chunked`` is a loop.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import OrderedDict
 
 import torch
 
+from .. import random as rng
 from ..mpc.mpc import MPCTensor
+from ..mpc.primitives.compressed import SeedCompressedArithmetic
 
-_init = {"generator": None}
+_init = {"generator": None, "skip": False}
 
 
 def set_init_seed(seed: int):
@@ -33,8 +46,27 @@ def _generator() -> torch.Generator:
     return _init["generator"]
 
 
+@contextlib.contextmanager
+def skip_init():
+    """Construct modules without drawing their initial values (their
+    parameters are left uninitialized), for weights installed right after."""
+    _init["skip"] = True
+    try:
+        yield
+    finally:
+        _init["skip"] = False
+
+
 def _uniform(shape, bound):
+    if _init["skip"]:
+        return torch.empty(shape, dtype=torch.float64)
     return (torch.rand(shape, generator=_generator(), dtype=torch.float64) * 2 - 1) * bound
+
+
+def _normal(shape):
+    if _init["skip"]:
+        return torch.empty(shape, dtype=torch.float64)
+    return torch.randn(shape, generator=_generator(), dtype=torch.float64)
 
 
 class Module(torch.nn.Module):
@@ -63,16 +95,48 @@ class Module(torch.nn.Module):
     def state_dict(self, prefix=""):
         return OrderedDict(self.named_params(prefix))
 
-    def encrypt(self, src: int = 0):
-        """Share every plaintext parameter from party ``src``."""
-        from .. import cryptensor
-
+    def _plaintext_params(self):
+        """(module, name) of every plaintext parameter, in module order."""
         for m in self.modules():
             if isinstance(m, Module):
                 for name, p in list(m._params.items()):
-                    if not isinstance(p, MPCTensor):
-                        m._params[name] = cryptensor(p, src=src)
+                    if isinstance(p, torch.Tensor):
+                        yield m, name
+
+    def encrypt(self, src: int = 0, seed_compress: bool = False):
+        """Share every plaintext parameter from party ``src``.
+
+        ``seed_compress=True`` (2 parties, inference) keeps seed-compressed
+        shares instead (module.py:107-152): each tensor is compressed under
+        its own key, folded from one fresh master key, and party 0 holds
+        share0 whatever ``src``."""
+        from .. import cryptensor
+
+        if seed_compress:
+            master = rng.compressed_master(rng.SEED_COMPRESS)
+            for n, (m, name) in enumerate(self._plaintext_params()):
+                m._params[name] = MPCTensor(
+                    SeedCompressedArithmetic.encrypt(m._params[name], rng.fold_in(master, n))
+                )
+            return self
+        for m, name in self._plaintext_params():
+            m._params[name] = cryptensor(m._params[name], src=src)
         return self
+
+    def resident_share_bytes(self) -> int:
+        """Bytes of the encrypted parameters' shares kept between forwards:
+        every party's share of a materialized tensor, share0 and the key of
+        a compressed one (chunk lists counted chunk by chunk)."""
+        total = 0
+        for _, p in self.named_params():
+            for t in p if isinstance(p, list) else [p]:
+                if isinstance(t, MPCTensor):
+                    inner = t._tensor
+                    if isinstance(inner, SeedCompressedArithmetic):
+                        total += inner.resident_bytes()
+                    else:
+                        total += inner.share.numel() * inner.share.element_size()
+        return total
 
 
 class Sequential(Module):
@@ -157,10 +221,7 @@ class Embedding(Module):
         super().__init__()
         self.vocab_size = vocab_size
         self.embed_dim = embed_dim
-        self.register_param(
-            "weight",
-            torch.randn((vocab_size, embed_dim), generator=_generator(), dtype=torch.float64),
-        )
+        self.register_param("weight", _normal((vocab_size, embed_dim)))
 
     def forward(self, x):
         return x.evaluate_embed(self._params["weight"])
@@ -188,3 +249,85 @@ class Attention(Module):
         attn = (query.matmul(key) / math.sqrt(d)).softmax(-1)
         y = attn.matmul(value).transpose(1, 2).reshape(b, t, self.embed_dim)
         return self.proj(y)
+
+
+def stack_compressed_chunks(weight: torch.Tensor, n_chunks: int, axis: int, master: int):
+    """Slice a plaintext ``weight`` into ``n_chunks`` equal chunks along
+    ``axis``, zero-padded at the end, and seed-compress each under its own
+    key ``fold_in(master, i)`` (module.py:339-374): (chunks as MPCTensors,
+    chunk length, padded length)."""
+    size = weight.shape[axis]
+    cl = -(-size // n_chunks)
+    chunks = []
+    for i in range(n_chunks):
+        lo = min(i * cl, size)
+        rows = weight.narrow(axis, lo, min(cl, size - lo))
+        if rows.shape[axis] < cl:
+            pad = list(weight.shape)
+            pad[axis] = cl - rows.shape[axis]
+            rows = torch.cat([rows, rows.new_zeros(pad)], dim=axis)
+        chunks.append(MPCTensor(SeedCompressedArithmetic.encrypt(rows, rng.fold_in(master, i))))
+    return chunks, cl, cl * n_chunks
+
+
+class ChunkedLinear(Module):
+    """Linear over a chunked seed-compressed weight (module.py:377-461).
+
+    ``axis=0`` chunks the output features (the chunks' products
+    concatenate); ``axis=1`` chunks the input features (the chunks'
+    products, each rescaled, accumulate). Either way a product expands and
+    masks one chunk of the weight at a time. Built from a plaintext weight
+    (``GPT.build_compressed``); the bias stays a plaintext parameter until
+    the enclosing module's ``encrypt``. ``tag`` names the chunks' master
+    key (default ``CHUNKED_LINEAR + axis``; the vocab-chunked LM head,
+    the JAX package's ChunkedLMHead, passes ``HEAD``)."""
+
+    def __init__(self, weight, bias, n_chunks, axis, tag=None):
+        super().__init__()
+        self.out_features, self.in_features = weight.shape
+        self.n_chunks = n_chunks
+        self.axis = axis
+        chunks, self.chunk_len, _ = stack_compressed_chunks(
+            weight, n_chunks, axis,
+            rng.compressed_master(rng.CHUNKED_LINEAR + axis if tag is None else tag)
+        )
+        self.register_param("wchunks", chunks)
+        if bias is not None:
+            self.register_param("bias", bias)
+
+    def forward(self, x):
+        chunks = self._params["wchunks"]
+        if self.axis == 0:
+            out = MPCTensor.cat([x.matmul(w.t()) for w in chunks], axis=-1)
+            if out.shape[-1] != self.out_features:
+                out = out.narrow(-1, 0, self.out_features)
+        else:
+            cl = self.chunk_len
+            pad = self.n_chunks * cl - self.in_features
+            if pad:
+                x = x.pad((0, pad))
+            acc = None
+            for i, w in enumerate(chunks):
+                part = x.narrow(-1, i * cl, cl).matmul(w.t())
+                acc = part if acc is None else acc + part
+            out = acc
+        if "bias" in self._params:
+            out = out + self._params["bias"]
+        return out
+
+
+def splits(n: int, chunk: int) -> bool:
+    """Whether ``scan_chunked`` splits ``n`` rows into chunks of ``chunk``:
+    a positive multiple of ``chunk`` above it."""
+    return 0 < chunk < n and n % chunk == 0
+
+
+def scan_chunked(fn, x, chunk: int):
+    """``fn`` on chunks of ``chunk`` rows of ``x``'s leading axis, the
+    results concatenated (module.py:498-538, a loop where the JAX package
+    scans; every chunk's draws take fresh counts). A direct call unless
+    ``x`` is an MPCTensor whose rows ``splits``."""
+    n = x.shape[0] if x.shape else 0
+    if not isinstance(x, MPCTensor) or not splits(n, chunk):
+        return fn(x)
+    return MPCTensor.cat([fn(x[i:i + chunk]) for i in range(0, n, chunk)], axis=0)

@@ -10,7 +10,9 @@ Counterpart of ``curl_tpu/random.py``. Every stream is a 64-bit Philox seed:
   dealer    the TFP dealer's stream for tuple plaintexts;
   fused     the dealer's stream for the randomness the fused protocol
             kernels draw in-kernel (``kernels/fused_mul.py``,
-            ``kernels/max_step.py``), derived from the dealer seed.
+            ``kernels/max_step.py``), derived from the dealer seed;
+  param     the root of the per-tensor keys of seed-compressed weights
+            (``compressed_master``), never a stream seed itself.
 
 A draw is (stream seed, draw counter, element index) -> 64 bits: the counter
 advances once per draw and restarts in ``init`` (``reset_count``), so a
@@ -36,6 +38,7 @@ from .kernels.philox import philox
 _M64 = (1 << 64) - 1
 
 _counter = 0
+_constructions = 0
 _counter_lock = threading.Lock()
 _keys = None
 
@@ -49,10 +52,12 @@ def _next_count() -> int:
 
 
 def reset_count():
-    """Restart the draw counter (called by ``curl_tpu_torch.init``)."""
-    global _counter
+    """Restart the draw counter and the counter of compressed constructions
+    (called by ``curl_tpu_torch.init``)."""
+    global _counter, _constructions
     with _counter_lock:
         _counter = 0
+        _constructions = 0
 
 
 def _splitmix64(x: int) -> int:
@@ -77,6 +82,7 @@ def make_party_keys(seed: int, world_size: int) -> dict:
         "global": [derive(3)],
         "dealer": [dealer],
         "fused": [_splitmix64(dealer ^ 0x46555345445F4B31)],
+        "param": [derive(5)],
     }
 
 
@@ -89,6 +95,35 @@ def current_keys() -> dict:
     if _keys is None:
         raise RuntimeError("curl_tpu_torch.init() must be called first")
     return _keys
+
+
+# Per-tensor keys of seed-compressed weights (``mpc/primitives/compressed.py``).
+# The tags are the JAX package's ``fold_in`` tags: each construction folds one
+# of them into a fresh master key, and each tensor or chunk folds its index
+# into the master (curl_tpu/nn/module.py:134-152 and :339-374,
+# curl_tpu/models/gpt.py:39 and :91).
+SEED_COMPRESS = 0x5EEDC0   # Module.encrypt(seed_compress=True)
+HEAD = 0x10EAD             # the LM head's ChunkedLinear (the JAX ChunkedLMHead)
+EMBED = 0xE4BED            # ChunkedEmbedding
+CHUNKED_LINEAR = 0xC4C4    # ChunkedLinear, plus its chunk axis
+
+
+def fold_in(key: int, data: int) -> int:
+    """A 64-bit key derived from ``key`` and ``data`` (jax.random.fold_in's
+    role)."""
+    return _splitmix64(key ^ _splitmix64(data & _M64))
+
+
+def compressed_master(tag: int) -> int:
+    """The master key of one compressed construction: the session's ``param``
+    root, a construction counter that ``init`` restarts, and ``tag``. The
+    root is derived under a tag of its own, so no key drawn from it is a
+    session stream seed but by a 2^-64 chance (which the tests check)."""
+    global _constructions
+    with _counter_lock:
+        c = _constructions
+        _constructions += 1
+    return fold_in(fold_in(current_keys()["param"][0], c), tag)
 
 
 # party-invariant streams: one row, no party axis

@@ -115,3 +115,41 @@ def test_fused_kernels_match_plain_on_card():
         assert torch.equal(max_step.launch_ltz(x, key, 3), max_step.plain_ltz(x, key, 3))
         assert torch.equal(max_step.launch_max_step(x, y, key, 4),
                            max_step.plain_max_step(x, y, key, 4))
+
+
+def test_seed_expand_refuses_cpu_tensors_and_bad_arguments():
+    from curl_tpu_torch.kernels import seed_expand
+
+    x = torch.zeros(4, 6, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        seed_expand.launch_compress(x, 1)
+    with pytest.raises(ValueError):
+        seed_expand.launch_expand(x, 1)
+    bad = (
+        lambda: seed_expand.plain_compress(x.to(torch.int32), 1),  # dtype
+        lambda: seed_expand.plain_expand(x.t(), 1),                # not contiguous
+        lambda: seed_expand.plain_expand(x, 1, parties=3),         # 2PC or one party only
+        lambda: seed_expand.plain_compress(x, 1 << 64),            # key beyond 64 bits
+        lambda: seed_expand.plain_compress(x, -1),
+    )
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.cuda
+def test_seed_expand_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from curl_tpu_torch.kernels import seed_expand
+
+    g = torch.Generator().manual_seed(2)
+    key = 0xFEDC_BA98_7654_3210
+    for shape in ((1,), (1031,), (33, 65), (2, 3, 4)):
+        e = torch.randint(-(2 ** 62), 2 ** 62, shape, generator=g).cuda()
+        share0 = seed_expand.launch_compress(e, key)
+        assert torch.equal(share0, seed_expand.plain_compress(e, key))
+        for parties in (1, 2):
+            got = seed_expand.launch_expand(share0, key, parties)
+            assert torch.equal(got, seed_expand.plain_expand(share0, key, parties))
+            assert torch.equal(got.sum(0), e)
