@@ -13,7 +13,10 @@ without the final line):
   2. build    every kernel from curl_tpu_torch/csrc with nvcc for sm_90a,
               one nvcc per source, all started together
   3. kernels  ring_mm and philox against their plain torch versions at the
-              main path's shapes and layouts, bit for bit; philox's time
+              main path's shapes and layouts, bit for bit; ring_mm also at
+              extreme operands (one whole FLUSH_K chunk a block), K around
+              FLUSH_K and past 2^17, 2 and 4 pairs of odd K, and GPT-Neo's
+              block products, each with its split-K chunks; philox's time
               and bound, 2-D and 1-D
   3b. fused   fused_mul (each op and truncation the path uses), ltz and
               max_step against their plain versions, bit for bit, at the
@@ -53,7 +56,9 @@ without the final line):
               the same layout: bit for bit against plain, timed with the L2
               cache flushed before each call, and summed over each path's
               launches into each kernel's milliseconds a forward of that
-              path
+              path; ring_mm's split-K chunks of its largest signatures,
+              each path's ring_mm and ring_mm_acc as multiples of their
+              bounds, and any ring_mm signature above 10x its bound
 
 It prints one JSON line with every kernel's numbers (launches, time,
 plain time and bound of one phase 4c forward, the slice's main path, and
@@ -64,9 +69,11 @@ name and power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -175,37 +182,45 @@ L2_FLUSH_BYTES = 4 * 50 * 2 ** 20
 
 
 def cuda_ms(fn, reps, cold=False):
-    """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA events),
-    after one warm-up run. The runs are queued behind a spin kernel that
-    lasts longer than the host takes to queue them, so the events time the
-    device's work, not the gaps of the host's launch overhead. ``cold``:
-    each run is timed alone after an L2 flush (not timed), so that it reads
-    its inputs from HBM, as a kernel of the forward does, not from the L2
-    cache the previous run left warm."""
+    """Device milliseconds of ``fn`` over ``reps`` runs (CUDA events), after
+    one warm-up run, with Python's garbage collector held off. The runs are
+    queued behind a spin kernel that lasts longer than the host takes to
+    queue them, so the events time the device's work, not the gaps of the
+    host's launch overhead: the mean of the runs. ``cold``: each run is
+    timed alone after an L2 flush (not timed), so that it reads its inputs
+    from HBM, as a kernel of the forward does, not from the L2 cache the
+    previous run left warm: the median of the runs, so that a host stall
+    past the spin's end in one run does not count."""
     flush = torch.ones(L2_FLUSH_BYTES // 8, dtype=torch.int64, device="cuda") if cold else None
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    if cold:
-        flush.sum()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * reps if cold else 2)]
-    _spin(1.5 * reps * host_ms + 1.0)
-    if not cold:
-        marks[0].record()
-        for _ in range(reps):
-            fn()
-        marks[1].record()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
         torch.cuda.synchronize()
-        return marks[0].elapsed_time(marks[1]) / reps
-    for i in range(reps):
-        flush.sum()
-        marks[2 * i].record()
+        t0 = time.perf_counter()
         fn()
-        marks[2 * i + 1].record()
-    torch.cuda.synchronize()
-    return sum(marks[2 * i].elapsed_time(marks[2 * i + 1]) for i in range(reps)) / reps
+        if cold:
+            flush.sum()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * reps if cold else 2)]
+        _spin(1.5 * reps * host_ms + 1.0)
+        if not cold:
+            marks[0].record()
+            for _ in range(reps):
+                fn()
+            marks[1].record()
+            torch.cuda.synchronize()
+            return marks[0].elapsed_time(marks[1]) / reps
+        for i in range(reps):
+            flush.sum()
+            marks[2 * i].record()
+            fn()
+            marks[2 * i + 1].record()
+        torch.cuda.synchronize()
+        return statistics.median(marks[2 * i].elapsed_time(marks[2 * i + 1]) for i in range(reps))
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def rand_i64(gen, shape, dev):
@@ -244,6 +259,33 @@ def _strided_i64(gen, shape, stride, dev):
     return rand_i64(gen, (span,), dev).as_strided(shape, stride)
 
 
+# operands whose balanced digits are extreme: 0x80..80 makes the largest
+# (-128 in limb 0, -127 in the others), so a diagonal's int32 sum comes
+# nearest its bound; INT64_MIN and -1 test the sign of the top and bottom
+# limbs
+RING_EXTREMES = (("INT64_MIN", -(2 ** 63)), ("-1", -1), ("0x7f..7f", 0x7F7F7F7F7F7F7F7F),
+                 ("0x80..80", 0x8080808080808080 - 2 ** 64))
+# GPT-Neo's block products as phase 4d passes them (shapes, strides): the
+# dealer's a @ b, the Beaver eps @ b + x @ delta (delta of Linear's
+# weight.t(), column-major), and the FFN down projection's, whose x is a
+# 2048-wide slice of the (64, 8192) activation
+NEO_X = ((1, 64, 2048), (131072, 2048, 1))
+NEO_W = ((2048, 2048), (2048, 1))
+NEO_B = ((2, 1, 2048, 2048), (4194304, 4194304, 2048, 1))
+NEO_DELTA = ((2048, 2048), (1, 2048))
+NEO_RING_MM = {
+    "neo dealer (1,64,2048)@(2048,2048)": [NEO_X + NEO_W],
+    "neo beaver eps@b + x@delta.t() at 2048": [
+        NEO_X + NEO_B, ((2, 1, 64, 2048), (131072, 131072, 2048, 1)) + NEO_DELTA],
+    "neo ffn down eps@b + x[..., chunk]@delta.t()": [
+        NEO_X + NEO_B, ((2, 1, 64, 2048), (524288, 524288, 8192, 1)) + NEO_DELTA],
+}
+
+
+def _full_i64(shape, value, dev):
+    return torch.full(shape, value, dtype=torch.int64, device=dev)
+
+
 def check_ring_mm(dev, gen):
     from curl_tpu_torch.kernels import ring_mm
 
@@ -260,18 +302,54 @@ def check_ring_mm(dev, gen):
                                                ((2, 1, 64, 768), ("t", 2304, 768))],
         "scores q@key.permute(0,2,3,1)": [((2, 1, 12, 64, 64), ("kperm", 2, 1, 64, 12, 64))],
         "embedding (2,64,50257)@(50257,768)": [((2, 64, 50257), (50257, 768))],
+        # long and odd k: around one chunk's FLUSH_K, past 2^17, four pairs,
+        # and pairs whose K is no multiple of the 32-k tile
+        "K 8191 (5,8191)@(8191,7)": [((5, 8191), (8191, 7))],
+        "K 8192 (5,8192)@(8192,7)": [((5, 8192), (8192, 7))],
+        "K 8193 (5,8193)@(8193,7)": [((5, 8193), (8193, 7))],
+        "K 2^17+37 (3,131109)@(131109,5)": [((3, 2 ** 17 + 37), (2 ** 17 + 37, 5))],
+        "acc4 4 x (64,3072)@(3072,768)": [((64, 3072), (3072, 768))] * 4,
+        "acc2 K 1000 + K 77 (64,K)@(K,200)": [((64, 1000), (1000, 200)), ((64, 77), (77, 200))],
     }
-    for name, shapes in cases.items():
-        pairs = [(_operand(gen, sa, dev), _operand(gen, sb, dev)) for sa, sb in shapes]
+    named = {name: [(_operand(gen, sa, dev), _operand(gen, sb, dev)) for sa, sb in shapes]
+             for name, shapes in cases.items()}
+    for name, sig in NEO_RING_MM.items():
+        named[name] = [(_strided_i64(gen, sa, st_a, dev), _strided_i64(gen, sb, st_b, dev))
+                       for sa, st_a, sb, st_b in sig]
+    # extreme operands: at (64, 8192) @ (8192, 8448) each of the 132 blocks
+    # contracts one whole FLUSH_K chunk; at small M and N around it
+    wide = ((64, 8192), (8192, 132 * 64))
+    for label, v in RING_EXTREMES:
+        named[f"extreme {label} (64,8192)@(8192,8448)"] = [
+            (_full_i64(wide[0], v, dev), _full_i64(wide[1], v, dev))]
+        for k in (8191, 8193):
+            named[f"extreme {label} (5,{k})@({k},7)"] = [
+                (_full_i64((5, k), v, dev), _full_i64((k, 7), v, dev))]
+    named["extreme 0x7f..7f @ 0x80..80 (64,8192)@(8192,8448)"] = [
+        (_full_i64(wide[0], RING_EXTREMES[2][1], dev),
+         _full_i64(wide[1], RING_EXTREMES[3][1], dev))]
+    named["extreme acc4 0x80..80, 4 x (5,2048)@(2048,7)"] = [
+        (_full_i64((5, 2048), RING_EXTREMES[3][1], dev),
+         _full_i64((2048, 7), RING_EXTREMES[3][1], dev))] * 4
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, pairs in named.items():
         got = ring_mm.ring_mm(pairs)
         want = ring_mm.plain(pairs)
         if not torch.equal(got, want):
-            raise AssertionError(f"ring_mm {name}: kernel != plain")
+            bad = (got != want).nonzero()
+            raise AssertionError(f"ring_mm {name}: kernel != plain at {bad.shape[0]} of "
+                                 f"{got.numel()} elements, first {bad[:4].tolist()}")
         if name.startswith("qkv"):
             a, b = pairs[0]
             if not torch.equal(got.cpu(), torch.matmul(a.cpu(), b.cpu())):
                 raise AssertionError("ring_mm qkv: kernel != CPU int64 matmul")
-        log(f"[kernels] ring_mm {name}: bit-exact vs plain")
+        g = ring_mm.plan(pairs, sms)
+        log(f"[kernels] ring_mm {name}: bit-exact vs plain ({g['out_tiles']} output tiles x "
+            f"{g['splits']} chunks of {g['chunk']} 32-k tiles)")
+        del pairs, got, want
+    del named
+    torch.cuda.empty_cache()
 
 
 def check_philox(dev, gen):
@@ -1146,8 +1224,11 @@ def time_ring_mm(sig, dev, gen):
     nbytes = sum(_distinct_numel(sa, st_a) + _distinct_numel(sb, st_b)
                  for sa, st_a, sb, st_b in sig) * 8 + got.numel() * 8
     macs = sum(got.numel() * sa[-1] for sa, _, _, _ in sig)
-    return dict(ms=cuda_ms(lambda: ring_mm.ring_mm(pairs), 3, cold=True),
-                dense_ms=cuda_ms(lambda: ring_mm.ring_mm(dense), 3, cold=True),
+    g = ring_mm.plan(pairs, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return dict(split=f"{g['splits']} chunks of {g['chunk']} 32-k tiles, "
+                      f"{g['out_tiles'] * g['splits']} blocks",
+                ms=cuda_ms(lambda: ring_mm.ring_mm(pairs), 5, cold=True),
+                dense_ms=cuda_ms(lambda: ring_mm.ring_mm(dense), 5, cold=True),
                 plain_ms=cuda_ms(lambda: ring_mm.plain(pairs), 1, cold=True),
                 t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
                 t_ops=36 * 2 * macs / INT8_OPS_PER_S * 1e3)
@@ -1228,6 +1309,11 @@ def time_signatures(paths, dev, gen):
             torch.cuda.empty_cache()
         log(f"[path] {kind}: {len(sigs)} launch signatures over the paths "
             f"{', '.join(paths)}, each bit-exact vs plain")
+    for sig, r in rows["ring_mm"].items():
+        x = r["ms"] / max(r["t_bytes"], r["t_ops"])
+        if x > 10:
+            log(f"[path] ring_mm above 10x its bound: {x:.1f}x, {r['ms']:.4f} ms, {r['split']}; "
+                f"{_describe('ring_mm', sig)}")
     return rows
 
 
@@ -1253,6 +1339,7 @@ def path_totals(path, calls, rows, top=8):
         tot = {k: sum(r[k] * n for _, n, r in mine) for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
         for sig, n, r in sorted(mine, key=lambda m: -m[2]["ms"] * m[1])[:top]:
             dense = f"; contiguous {r['dense_ms']:.4f} ms" if "dense_ms" in r else ""
+            dense += f"; {r['split']}" if "split" in r else ""
             log(f"[path] {path} {name} x{n}: {r['ms']:.4f} ms each, {r['ms'] * n:.3f} ms a forward "
                 f"({r['ms'] * n / (tot['ms'] or 1.0):.1%}){dense}; bound "
                 f"{max(r['t_bytes'], r['t_ops']):.5f} ms; plain {r['plain_ms']:.3f} ms; "
@@ -1330,6 +1417,10 @@ def run_paths(dev, gen):
     # then summed over each path's launches
     rows = time_signatures({p: c for p, (c, _) in paths.items()}, dev, gen)
     totals = {p: path_totals(p, c, rows) for p, (c, _) in paths.items()}
+    for p, t in totals.items():
+        log(f"[path] {p} ring_mm and ring_mm_acc against their bounds: " + ", ".join(
+            f"{name} {t[name]['ms']:.3f} ms = {t[name]['ms'] / t[name]['bound_ms']:.2f}x "
+            f"{t[name]['bound_ms']:.4f} ms" for name in ("ring_mm", "ring_mm_acc") if name in t))
     kernels = []
     for name, _, _, replaces, source in PATH_KERNELS:
         main = totals[MAIN_PATH].get(name)

@@ -45,7 +45,17 @@ def test_ring_mm_kernel_matches_plain_on_card():
         # the path's layouts: a transposed weight, attention's permuted keys
         [(r(1, 8, 33), r(2, 1, 33, 9)), (r(2, 1, 8, 33), r(9, 33).t())],
         [(r(2, 1, 3, 7, 5), r(2, 1, 7, 3, 5).permute(0, 1, 3, 4, 2))],
+        # K past one FLUSH_K chunk, and four pairs of odd K
+        [(r(3, 8193), r(8193, 5))],
+        [(r(3, k), r(k, 5)) for k in (8193, 100, 4000, 37)],
     )
+    # operands whose balanced digits are extreme (0x80..80: -128, then -127
+    # in every limb), at K around FLUSH_K and at a width whose 132 blocks
+    # each contract one whole FLUSH_K chunk
+    full = lambda v, *s: torch.full(s, v, dtype=torch.int64, device="cuda")  # noqa: E731
+    extremes = (-(2 ** 63), -1, 0x7F7F7F7F7F7F7F7F, 0x8080808080808080 - 2 ** 64)
+    cases += tuple([(full(v, 3, k), full(v, k, 5))] for v in extremes for k in (8191, 8192, 8193))
+    cases += tuple([(full(v, 64, 8192), full(v, 8192, 132 * 64))] for v in extremes[2:])
     for pairs in cases:
         assert torch.equal(ring_mm.ring_mm(pairs), ring_mm.plain(pairs))
 
