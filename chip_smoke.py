@@ -11,13 +11,20 @@ without the final line):
 
   1. device   the card's name and power limit (nvidia-smi); raises without CUDA
   2. build    every kernel from curl_tpu_torch/csrc with nvcc for sm_90a,
-              one nvcc per source, all started together
+              one nvcc per source, all started together; the SASS
+              instructions of one Philox call (cuobjdump -sass of
+              philox_rate_kernel), the count behind every bound by operations
   3. kernels  ring_mm and philox against their plain torch versions at the
               main path's shapes and layouts, bit for bit; ring_mm also at
               extreme operands (one whole FLUSH_K chunk a block), K around
               FLUSH_K and past 2^17, 2 and 4 pairs of odd K, and GPT-Neo's
               block products, each with its split-K chunks; philox's time
-              and bound, 2-D and 1-D
+              and bound, 2-D and 1-D, and grouped launches: each TFP
+              provider call's segments at the path's sizes and 3 x 16
+              mixed segments against plain_philox_group; the Philox-only
+              kernel at the path's largest launch against its bound by
+              operations; what a launch costs whatever it carries (a
+              one-element torch op, a tiny group, torch's fill_ of 25 MiB)
   3b. fused   fused_mul (each op and truncation the path uses), ltz and
               max_step against their plain versions, bit for bit, at the
               path's sizes and an odd one; time, plain time and bound
@@ -56,9 +63,11 @@ without the final line):
               the same layout: bit for bit against plain, timed with the L2
               cache flushed before each call, and summed over each path's
               launches into each kernel's milliseconds a forward of that
-              path; ring_mm's split-K chunks of its largest signatures,
-              each path's ring_mm and ring_mm_acc as multiples of their
-              bounds, and any ring_mm signature above 10x its bound
+              path, against the sum of each signature's bound (the larger
+              of bytes and operations); philox's launches, ms and bound by
+              size class; ring_mm's split-K chunks of its largest
+              signatures, each path's ring_mm and ring_mm_acc as multiples
+              of their bounds, and any ring_mm signature above 10x its bound
 
 It prints one JSON line with every kernel's numbers (launches, time,
 plain time and bound of one phase 4c forward, the slice's main path, and
@@ -73,6 +82,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -102,13 +112,22 @@ HIDDEN_STATE_SCALE_FREE_L2 = 0.15
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-# The fused protocol kernels' integer work, counted in 32-bit operations at
-# the 32-bit CUDA-core peak (the data sheet's 67 T/s, float32 outside the
-# tensor cores; Hopper issues 32-bit integer operations at no higher rate).
-# Only the Philox rounds and the 64-bit products are counted, so the bound
-# by operations is a lower one.
-INT32_OPS_PER_S = 67e12
-PHILOX_OPS = 98  # Philox4x32-10: 10 rounds of 2 mul.lo, 2 mul.hi, 4 xor; 9 key bumps of 2 adds
+# The Philox and fused protocol kernels' integer work, counted in 32-bit
+# instructions at the CUDA cores' 32-bit integer rate: the CUDA C++
+# Programming Guide's table of arithmetic instruction throughput gives, at
+# compute capability 9.0, 64 results a clock per SM for 32-bit integer add,
+# multiply-add, shift and bitwise logical operations. ``set_int32_rate``
+# sets it to 64 x the SM count x the SM clock nvidia-smi reads
+# (clocks.max.sm); the default is an H100 SXM's 132 SMs at 1,980 MHz. Only
+# the Philox rounds and the 64-bit products are counted, so the bound by
+# operations is a lower one.
+INT32_PER_CLOCK_PER_SM = 64
+INT32_OPS_PER_S = INT32_PER_CLOCK_PER_SM * 132 * 1.98e9
+# SASS instructions of one Philox4x32-10 call with its output's XOR fold, as
+# ``philox_sass_ops`` counts them in the built philox_rate_kernel (it sets
+# this from the card's build; the default is that count on an H100 with
+# CUDA 12.8)
+PHILOX_OPS = 40.5
 MUL64_OPS = 3    # a 64-bit product mod 2^64: one widening 32-bit multiply, two cross products
 
 # bench.py's kernel configuration (bench.py:136-174): the scan_reduction max
@@ -151,12 +170,23 @@ def log(msg):
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(query="name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def set_int32_rate(dev):
+    """INT32_OPS_PER_S from the card: 64 a clock per SM x SMs x the maximum
+    SM clock (nvidia-smi clocks.max.sm, in MHz)."""
+    global INT32_OPS_PER_S
+    mhz = float(nvidia_smi_line("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    INT32_OPS_PER_S = INT32_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    log(f"[device] 32-bit integer rate {INT32_OPS_PER_S / 1e12:.3f} T/s: "
+        f"{INT32_PER_CLOCK_PER_SM} a clock x {sms} SMs x {mhz:.0f} MHz (clocks.max.sm)")
 
 
 _spin_cycles_per_ms = []
@@ -352,10 +382,175 @@ def check_ring_mm(dev, gen):
     torch.cuda.empty_cache()
 
 
+def _sass_functions(lib_path):
+    """{function name: [SASS opcodes]} of a built library (cuobjdump -sass),
+    padding NOPs left out."""
+    from curl_tpu_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(build._nvcc())), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m and not m.group(1).startswith("NOP"):
+                funcs[name].append(m.group(1))
+    return funcs
+
+
+def philox_sass_ops():
+    """SASS instructions of one Philox call: philox_rate_kernel's
+    instructions at 2 x and 1 x rate_calls() calls a thread, their
+    difference over rate_calls(); by opcode, for the log."""
+    from curl_tpu_torch.kernels import build, philox
+
+    funcs = _sass_functions(build._target("philox"))
+    calls = philox.rate_calls()
+    one = next(v for k, v in funcs.items() if f"philox_rate_kernelILi{calls}E" in k)
+    two = next(v for k, v in funcs.items() if f"philox_rate_kernelILi{2 * calls}E" in k)
+    per_call = (len(two) - len(one)) / calls
+    mix = {}
+    for op in two:
+        key = op.split(".")[0]
+        mix[key] = mix.get(key, 0) + 1
+    for op in one:
+        key = op.split(".")[0]
+        mix[key] = mix.get(key, 0) - 1
+    mix = {k: v / calls for k, v in sorted(mix.items(), key=lambda kv: -kv[1]) if v}
+    return per_call, mix
+
+
+def check_launch_floor(dev):
+    """What a launch costs whatever it carries, in the timing phase 5 uses:
+    a one-element torch op and a two-segment philox group of 64 elements,
+    L2-cold and warm; and torch's own fill_ of 25 MiB (the bytes of GPT-Neo's
+    largest-but-one philox groups) against its bound by bytes, the yardstick
+    of a launch that only writes."""
+    from curl_tpu_torch.kernels import philox
+    from curl_tpu_torch.kernels.philox import Segment
+
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
+    tiny = [Segment("draw", (DEALER_KEY,), c, 64) for c in (1, 2)]
+    for name, fn in (("a one-element torch add_", lambda: one.add_(1)),
+                     ("a philox group of 2 x 64 elements",
+                      lambda: philox.philox_group(tiny, dev))):
+        log(f"[kernels] launch floor: {name}: {cuda_ms(fn, 20, cold=True):.4f} ms L2-cold, "
+            f"{cuda_ms(fn, 50):.4f} ms warm")
+    big = torch.empty(25 * 2 ** 20 // 8, dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: big.fill_(3), 10, cold=True)
+    b = big.numel() * 8 / HBM_BYTES_PER_S * 1e3
+    log(f"[kernels] launch floor: torch fill_ of 25 MiB: {ms:.4f} ms L2-cold, {ms / b:.2f}x its "
+        f"bound {b:.4f} ms by bytes")
+    del big
+
+
+def check_philox_rate(dev, largest_calls):
+    """The Philox-only kernel at ``largest_calls`` calls, against the bound
+    by operations those calls make at PHILOX_OPS each."""
+    from curl_tpu_torch.kernels import philox
+
+    per_thread = philox.rate_calls()
+    threads = max(256, -(-largest_calls // per_thread // 256) * 256)
+    calls = threads * per_thread
+    ms = cuda_ms(lambda: philox.launch_rate(threads, dev), 10, cold=True)
+    t_ops = calls * PHILOX_OPS / INT32_OPS_PER_S * 1e3
+    verdict = ("below the bound by operations: the count or the rate is wrong" if ms < t_ops
+               else "above the bound by operations")
+    log(f"[kernels] philox_rate: {calls} Philox calls ({threads} threads x {per_thread}, one "
+        f"XOR-folded store a thread) in {ms:.4f} ms L2-cold, {verdict} {t_ops:.4f} ms "
+        f"({PHILOX_OPS} instructions a call at {INT32_OPS_PER_S / 1e12:.3f} T/s; "
+        f"{calls * PHILOX_OPS / (ms * 1e-3) / 1e12:.3f} T instructions/s achieved)")
+    return ms, t_ops
+
+
+RING_KEYS = (0x0123456789ABCDEF, 0x0FEDCBA987654321)
+DEALER_KEY = 0x00C0FFEE0DDBA11
+
+
+def provider_groups(dev, gen):
+    """Each TFP provider call's grouped launches at the path's sizes, on
+    fresh keys and plaintexts: {name: [segments]}."""
+    from curl_tpu_torch.kernels.philox import Segment
+
+    def fresh(n, bits, c, how="add", emit=False):
+        return Segment("fresh", RING_KEYS, 100 + c, n, how=how, dealer=DEALER_KEY,
+                       draw_counter=c, draw_kbits=bits, emit=emit)
+
+    def share(n, c, how="add"):
+        return Segment("plain", RING_KEYS, 100 + c, n, how=how, plain=rand_i64(gen, (n,), dev))
+
+    def draw(n, c):
+        return Segment("draw", (DEALER_KEY,), c, n)
+
+    return {
+        # a Linear's triple, (64, 768) @ (768, 3072): a and b, then c
+        "triple (64,768)@(768,3072) a, b": [fresh(64 * 768, 64, 0, emit=True),
+                                            fresh(768 * 3072, 64, 1, emit=True)],
+        "triple c (64,3072)": [share(64 * 3072, 2)],
+        # the LM head chunk's triple: b at (768, 6283), the path's largest
+        "triple (64,768)@(768,6283) a, b": [fresh(64 * 768, 64, 3, emit=True),
+                                            fresh(768 * 6283, 64, 4, emit=True)],
+        "square r (64,3072), r^2": [fresh(64 * 3072, 64, 5, emit=True)],
+        "EGK l-m, m, 1 at 196608": [fresh(196608, 48, 6), fresh(196608, 16, 7),
+                                    fresh(196608, 1, 8)],
+        "binary triple draws at 64": [draw(64, 9), draw(64, 10)],
+        "binary triple shares at 64": [share(64, 11, "xor"), share(64, 12, "xor"),
+                                       share(64, 13, "xor")],
+        "B2A at 196608": [fresh(196608, 1, 14), fresh(196608, 1, 14, how="xor")],
+        "LUT r, then r mod L and 2 masks at 49152": [draw(49152, 15)],
+        "LUT shares at 49152": [share(49152, 16)] + [
+            Segment("zero", RING_KEYS, 117 + i, 49152) for i in range(2)],
+    }
+
+
+def random_segments(g, count, dev):
+    """``count`` mixed segments from numpy generator ``g``: every kind,
+    additive and XOR, odd n and n = 1, rows 1-8, kbits 1, 20 and 64."""
+    from curl_tpu_torch.kernels.philox import HOWS, MAX_ROWS, WHATS, Segment
+
+    out = []
+    for i in range(count):
+        what = list(WHATS)[i % len(WHATS)]
+        how = "add" if what == "draw" else HOWS[(i // len(WHATS)) % 2]
+        n = int(g.choice([1, 3, 257, 1001, 65_537, 1_000_003]))
+        rows = 1 if i == 0 else 2 if what != "draw" and i % 3 else int(g.integers(1, MAX_ROWS + 1))
+        keys = tuple(int(k) * 2 + 1 for k in g.integers(0, 2 ** 63, size=rows))
+        kbits = int(g.choice([1, 20, 64])) if what == "draw" or how == "xor" else 64
+        plain = None
+        if what == "plain":
+            plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=n)).to(dev)
+        elif what == "plain_lane":
+            plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=(rows, n))).to(dev)
+        out.append(Segment(what, keys, int(g.integers(0, 2 ** 62)), n, how=how, kbits=kbits,
+                           src=int(g.integers(0, min(rows, 2))), plain=plain,
+                           dealer=int(g.integers(0, 2 ** 63)), draw_counter=i,
+                           draw_kbits=int(g.choice([1, 20, 64])),
+                           emit=what == "fresh" and i % 2 == 1))
+    return out
+
+
+def _check_group(name, segments, dev):
+    from curl_tpu_torch.kernels import philox
+
+    got = philox.philox_group(segments, dev)
+    want = philox.plain_philox_group(segments, dev)
+    for i, (a, b) in enumerate(zip(got, want)):
+        # an emitted fresh draw's output is the pair (shares, value)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"philox group {name}, segment {i} "
+                                 f"{segments[i].signature()}: kernel != plain")
+    return got
+
+
 def check_philox(dev, gen):
     from curl_tpu_torch.kernels import philox
 
-    ring_keys = [0x0123456789ABCDEF, 0x0FEDCBA987654321]
+    ring_keys = list(RING_KEYS)
     for n in (768 * 50257, 1_000_003):
         plain_n = rand_i64(gen, (n,), dev)
         plain_lane = rand_i64(gen, (2, n), dev)
@@ -383,6 +578,7 @@ def check_philox(dev, gen):
             b, by = bound((2 * n + n) * 8, 2 * (n + 1) // 2 * PHILOX_OPS)
             log(f"[kernels] philox share (2, {n}): {ms:.3f} ms (plain {plain_ms:.3f} ms, "
                 f"bound {b:.4f} ms by {by})")
+        del plain_n, plain_lane
     # the 1-D form (pallas_przs.py:60 on the TPU) at the GELU's element count
     n = 64 * 3072
     plain_n = rand_i64(gen, (n,), dev)
@@ -398,6 +594,23 @@ def check_philox(dev, gen):
                       len(kw["keys"]) * (n + 1) // 2 * PHILOX_OPS)
         log(f"[kernels] philox 1-D {mode} ({got.shape[0]}, {n}): bit-exact vs plain; {ms:.4f} ms "
             f"(plain {plain_ms:.3f} ms, bound {b:.5f} ms by {by})")
+
+    # grouped launches: each provider call's segments at the path's sizes,
+    # then 16 mixed segments, additive and XOR, with odd n and n = 1
+    for name, segments in provider_groups(dev, gen).items():
+        _check_group(name, segments, dev)
+        nbytes, ops = philox_work([s.signature() for s in segments])
+        b, by = bound(nbytes, ops)
+        ms = cuda_ms(lambda: philox.philox_group(segments, dev), 10, cold=True)
+        log(f"[kernels] philox group {name}: bit-exact vs plain; {ms:.4f} ms L2-cold "
+            f"(bound {b:.5f} ms by {by})")
+    g = np.random.default_rng(5)
+    for rep in range(3):
+        segments = random_segments(g, philox.MAX_SEGMENTS, dev)
+        _check_group(f"mixed {rep}", segments, dev)
+    log(f"[kernels] philox group: 3 x {philox.MAX_SEGMENTS} mixed segments (every kind, additive "
+        "and XOR, n from 1 to 1000003, rows 1-8, kbits 1/20/64): bit-exact vs plain")
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -664,7 +877,7 @@ def fmt_stats(st):
 def recording_launches():
     """Count, by launch signature, every kernel launch made while the
     context is open (the wrappers' own launch counts are kept): ring_mm by
-    its pairs' shapes and strides; philox by mode, rows, n, kbits and src;
+    its pairs' shapes and strides; philox by its segments' signatures;
     fused_mul by op, truncation, bits and its operands' shapes and strides;
     ltz and max_step by their operands' shapes and strides; seed_expand by
     mode, elements and parties."""
@@ -686,9 +899,10 @@ def recording_launches():
                               for a, b in pairs))
         return orig["ring_mm"](pairs)
 
-    def rec_philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=None):
-        note("philox", (mode, len(keys), n, kbits, src))
-        return orig["philox"](mode, keys, counter, n, plain, src, kbits, device)
+    def rec_philox_group(segments, device=None):
+        segments = list(segments)
+        note("philox", tuple(seg.signature() for seg in segments))
+        return orig["philox_group"](segments, device)
 
     def rec_fused_mul(op, trunc, m, x, y, key, count):
         note("fused_mul", (op, trunc, m) + layout(*([x] if y is None else [x, y])))
@@ -706,7 +920,7 @@ def recording_launches():
         note("seed_expand", ("expand" if parties == 2 else "expand1", share0.numel(), parties))
         return orig["expand"](share0, key, parties)
 
-    targets = [(ring_mm, "ring_mm", rec_ring_mm), (crandom, "philox", rec_philox),
+    targets = [(ring_mm, "ring_mm", rec_ring_mm), (crandom, "philox_group", rec_philox_group),
                (fused_mul, "fused_mul", rec_fused_mul), (max_step, "ltz", rec_ltz),
                (max_step, "max_step", rec_max_step), (seed_expand, "expand", rec_expand)]
     orig = {name: getattr(mod, name) for mod, name, _ in targets}
@@ -788,8 +1002,8 @@ def profile_forward(model, xe, best_s):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
     port = {}
     for e in events:
-        for name in ("ring_mm_kernel", "philox_kernel", "fused_mul_kernel", "step_kernel<false>",
-                     "step_kernel<true>", "seed_expand_kernel"):
+        for name in ("ring_mm_kernel", "philox_group_kernel", "fused_mul_kernel",
+                     "step_kernel<false>", "step_kernel<true>", "seed_expand_kernel"):
             if name in e.key:
                 ms, n = port.get(name, (0.0, 0))
                 port[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -1234,27 +1448,49 @@ def time_ring_mm(sig, dev, gen):
                 t_ops=36 * 2 * macs / INT8_OPS_PER_S * 1e3)
 
 
+def philox_work(sig):
+    """(bytes, 32-bit operations) of one grouped philox launch: every output
+    row written once, a given plaintext's row read once; one Philox call
+    per pair and per stream (a fresh draw's own stream included)."""
+    nbytes = sum(((keys + emit) * n + (n if what in ("plain", "plain_lane") else 0)) * 8
+                 for what, _, keys, n, _, _, _, emit in sig)
+    return nbytes, philox_calls(sig) * PHILOX_OPS
+
+
+def philox_calls(sig):
+    """Philox calls of one grouped launch: one per pair and per stream."""
+    return sum((keys + (what == "fresh")) * ((n + 1) // 2) for what, _, keys, n, *_ in sig)
+
+
+def philox_segments(sig, dev, gen):
+    """Segments of a recorded signature on fresh keys and plaintexts."""
+    from curl_tpu_torch.kernels.philox import Segment
+
+    segments = []
+    for i, (what, how, keys, n, kbits, src, draw_kbits, emit) in enumerate(sig):
+        plain = None
+        if what == "plain":
+            plain = rand_i64(gen, (n,), dev)
+        elif what == "plain_lane":
+            plain = rand_i64(gen, (keys, n), dev)
+        segments.append(Segment(
+            what, tuple(0x0123456789ABCDEF + 7919 * (k + 8 * i) for k in range(keys)), 3 + i, n,
+            how=how, kbits=kbits, src=src, plain=plain, dealer=DEALER_KEY, draw_counter=50 + i,
+            draw_kbits=draw_kbits, emit=emit))
+    return segments
+
+
 def time_philox(sig, dev, gen):
-    """One (mode, rows, n, kbits, src) of philox on fresh keys and
-    plaintexts: bit-exact against plain, timed (L2-cold)."""
+    """One grouped launch's signature (its segments') on fresh keys and
+    plaintexts: bit-exact against plain_philox_group, timed (L2-cold)."""
     from curl_tpu_torch.kernels import philox
 
-    mode, nkeys, n, kbits, src = sig
-    plain = None
-    if mode == "share":
-        plain = rand_i64(gen, (n,), dev)
-    elif mode == "share_lane":
-        plain = rand_i64(gen, (nkeys, n), dev)
-    kw = dict(keys=[0x0123456789ABCDEF + 7919 * i for i in range(nkeys)], counter=3, n=n,
-              plain=plain, src=src, kbits=kbits, device=dev)
-    got = philox.philox(mode, **kw)
-    if not torch.equal(got, philox.plain_philox(mode, **kw)):
-        raise AssertionError(f"philox at the path signature {sig}: kernel != plain")
-    nbytes = (got.numel() + (plain.numel() if plain is not None else 0)) * 8
-    return dict(ms=cuda_ms(lambda: philox.philox(mode, **kw), 5, cold=True),
-                plain_ms=cuda_ms(lambda: philox.plain_philox(mode, **kw), 1, cold=True),
-                t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
-                t_ops=nkeys * (n + 1) // 2 * PHILOX_OPS / INT32_OPS_PER_S * 1e3)
+    segments = philox_segments(sig, dev, gen)
+    _check_group(_describe("philox", sig), segments, dev)
+    nbytes, ops = philox_work(sig)
+    return dict(ms=cuda_ms(lambda: philox.philox_group(segments, dev), 5, cold=True),
+                plain_ms=cuda_ms(lambda: philox.plain_philox_group(segments, dev), 1, cold=True),
+                t_bytes=nbytes / HBM_BYTES_PER_S * 1e3, t_ops=ops / INT32_OPS_PER_S * 1e3)
 
 
 def time_fused(kind, sig, count, dev, gen):
@@ -1321,7 +1557,11 @@ def _describe(kind, sig):
     if kind == "ring_mm":
         return "shapes(strides) " + " + ".join(f"{sa}{st_a}@{sb}{st_b}" for sa, st_a, sb, st_b in sig)
     if kind == "philox":
-        return f"{sig[0]} rows {sig[1]} n {sig[2]} kbits {sig[3]}"
+        return " + ".join(
+            f"{what}{'' if what == 'draw' else '/' + how} rows {keys}{'+1' if emit else ''} n {n}"
+            f"{'' if kbits == 64 else f' kbits {kbits}'}"
+            f"{f' draw_kbits {dk}' if what == 'fresh' and dk != 64 else ''}"
+            for what, how, keys, n, kbits, _, dk, emit in sig)
     if kind == "seed_expand":
         return f"{sig[0]} n {sig[1]} parties {sig[2]}"
     return " ".join(str(x) for x in sig)
@@ -1344,15 +1584,54 @@ def path_totals(path, calls, rows, top=8):
                 f"({r['ms'] * n / (tot['ms'] or 1.0):.1%}){dense}; bound "
                 f"{max(r['t_bytes'], r['t_ops']):.5f} ms; plain {r['plain_ms']:.3f} ms; "
                 f"{_describe(kind, sig)}")
-        b, by = ((tot["t_bytes"], "bytes") if tot["t_bytes"] >= tot["t_ops"]
-                 else (tot["t_ops"], "operations"))
+        # the bound is each signature's max(bytes, operations), summed;
+        # "bound_by" names the side that bounds the larger part of it
+        by_side = {"bytes": 0.0, "operations": 0.0}
+        for _, n, r in mine:
+            side = "bytes" if r["t_bytes"] >= r["t_ops"] else "operations"
+            by_side[side] += n * max(r["t_bytes"], r["t_ops"])
+        b = sum(by_side.values())
+        by = max(by_side, key=by_side.get)
         launches = sum(n for _, n, _ in mine)
         log(f"[path] {path} {name}: one forward's {launches} launches over {len(mine)} "
-            f"signatures: {tot['ms']:.3f} ms (bound {b:.4f} ms by {by}; "
-            f"plain {tot['plain_ms']:.1f} ms)")
+            f"signatures: {tot['ms']:.3f} ms (bound {b:.4f} ms, {by_side['bytes']:.4f} by bytes + "
+            f"{by_side['operations']:.4f} by operations; plain {tot['plain_ms']:.1f} ms)")
+        if kind == "philox":
+            philox_size_classes(path, mine)
         out[name] = dict(launches=launches, signatures=len(mine), ms=tot["ms"],
                          plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by)
     return out
+
+
+# philox launches by the elements of the launch: at most 1k, at most 256k,
+# above
+PHILOX_SIZE_CLASSES = ((1024, "<= 1k"), (256 * 1024, "<= 256k"), (None, "> 256k"))
+# philox launches whose multiple of the bound is logged one by one
+PHILOX_LARGE = 1_000_000
+
+
+def philox_elements(sig):
+    """Elements of one philox launch: n summed over its segments."""
+    return sum(seg[3] for seg in sig)
+
+
+def philox_size_classes(path, mine):
+    """One path's philox launches, ms and bound by size class."""
+    parts, lo = [], 0
+    for limit, label in PHILOX_SIZE_CLASSES:
+        rows = [(n, r) for sig, n, r in mine
+                if lo < philox_elements(sig) and (limit is None or philox_elements(sig) <= limit)]
+        parts.append(f"{label}: {sum(n for n, _ in rows)} launches, "
+                     f"{sum(n * r['ms'] for n, r in rows):.3f} ms, bound "
+                     f"{sum(n * max(r['t_bytes'], r['t_ops']) for n, r in rows):.4f} ms")
+        lo = limit
+    log(f"[path] {path} philox by size class: " + "; ".join(parts))
+    large = sorted(((r["ms"] / max(r["t_bytes"], r["t_ops"]), n, sig, r) for sig, n, r in mine
+                    if philox_elements(sig) > PHILOX_LARGE), key=lambda x: -x[0])
+    for x, n, sig, r in large:
+        log(f"[path] {path} philox above {PHILOX_LARGE} elements x{n}: {x:.2f}x its bound, "
+            f"{r['ms']:.4f} ms against {max(r['t_bytes'], r['t_ops']):.5f}; "
+            f"{_describe('philox', sig)}")
 
 
 def main():
@@ -1366,6 +1645,7 @@ def main():
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    set_int32_rate(dev)
 
     secs = build.build_all()
     log(f"[build] {', '.join(build.KERNELS)} built for sm_90a in {secs:.1f} s")
@@ -1374,8 +1654,22 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    spills = [line for line in build.build_logs.get("philox", "").splitlines()
+              if re.search(r"[1-9]\d* bytes spill", line)]
+    if spills:
+        raise AssertionError(f"ptxas spills in csrc/philox.cu: {spills}")
+    global PHILOX_OPS
+    PHILOX_OPS, mix = philox_sass_ops()
+    log(f"[build] philox: one Philox4x32-10 call is {PHILOX_OPS:g} SASS instructions with its "
+        "XOR fold (philox_rate_kernel, cuobjdump -sass): " + ", ".join(
+            f"{op} {k:g}" for op, k in mix.items()))
+
     gen = torch.Generator().manual_seed(5)
     check_ring_mm(dev, gen)
+    largest = provider_groups(dev, gen)["triple (64,768)@(768,6283) a, b"]
+    check_philox_rate(dev, philox_calls([seg.signature() for seg in largest]))
+    del largest
+    check_launch_floor(dev)
     check_philox(dev, gen)
     torch.cuda.empty_cache()
     check_fused(dev, gen)

@@ -1,33 +1,59 @@
 """Wrapper of the CUDA Philox kernel (``csrc/philox.cu``) and its plain version.
 
-``philox(mode, keys, counter, n, ...)`` returns a ``(rows, n)`` int64 tensor:
+``philox_group(segments)`` makes one launch for up to ``MAX_SEGMENTS``
+segments and returns one int64 tensor per segment (a pair for an emitted
+fresh draw). A segment is a bare draw or a sharing (see ``Segment``):
 
-  draw        row s: the 64-bit stream of ``keys[s]``, logically shifted
-              right by ``64 - kbits``;
-  przs        row p: stream(keys[p - 1]) - stream(keys[p]) (keys are the
-              ring seeds; rows telescope to zero over the parties);
-  share       przs + [p == src] * plain, plain (n,) shared by the parties;
-  share_lane  przs + [p == src] * plain[src], plain (P, n) per party.
+  draw        (rows, n), row s: the 64-bit stream of ``keys[s]``, logically
+              shifted right by ``64 - kbits``;
+  zero        (P, n) PRZS: additive, row p stream(keys[p - 1]) -
+              stream(keys[p]) (keys are the ring seeds; rows telescope to
+              zero over the parties), or XOR, row p (stream(keys[p - 1]) ^
+              stream(keys[p])) >> (64 - kbits);
+  plain       PRZS plus (or XOR) ``plain`` (n,) on party ``src``;
+  plain_lane  PRZS plus (or XOR) ``plain[src]`` of a (P, n) plaintext;
+  fresh       PRZS plus (or XOR) the dealer's fresh draw v =
+              stream(dealer, draw_counter) >> (64 - draw_kbits) on party
+              ``src``; with ``emit`` the output is the pair (shares, v).
+
+``philox(mode, keys, counter, n, ...)`` is the one-segment group of the
+first slices' modes (draw, przs, share, share_lane).
 
 Stream element 2j and 2j + 1 are the four words of Philox4x32-10 at counter
 (j_lo, j_hi, draw_lo, draw_hi) under key (seed_lo, seed_hi). On a CUDA
-device the kernel runs; on the CPU the plain version, which is the same
-Philox in torch int64 arithmetic (32-bit products via masking) and is
-bit-identical to the kernel on every device.
+device the kernel runs; on the CPU the plain version, ``plain_philox_group``:
+the per-segment sequence of ``plain_philox`` calls and torch ops that the
+TFP dealer made before the group existed, bit-identical to the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from . import build
 
-MODES = {"draw": 0, "przs": 1, "share": 2, "share_lane": 3}
+# the first slices' modes, each a one-segment group of what
+MODES = {"draw": "draw", "przs": "zero", "share": "plain", "share_lane": "plain_lane"}
 MAX_ROWS = 8
+# segments a launch takes (csrc/philox.cu's kMaxSegments), and elements a
+# segment's row holds (kMaxN: pair indices fit 31 bits)
+MAX_SEGMENTS = 16
+MAX_N = (1 << 32) - 1
+WHATS = {"draw": 0, "zero": 1, "plain": 2, "plain_lane": 3, "fresh": 4}
+HOWS = ("add", "xor")
+# the kernel's block: threads, and pairs in flight a thread
+THREADS = 256
+PAIRS_IN_FLIGHT = 2
+# resident blocks an SM assumed where the card is not asked (the kernel's
+# __launch_bounds__ minimum)
+BLOCKS_PER_SM = 4
 
 _M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
 _MUL0, _MUL1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
@@ -36,21 +62,80 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 SLOT_SHIFT = 48
 MAX_COUNT = 1 << SLOT_SHIFT
 
-# launches of the kernel, by mode
+# launches of the kernel, by mode: the "+"-joined tags of a group's
+# segments (``Segment.tag``)
 launches = {}
+
+
+class _SegmentArgs(ctypes.Structure):
+    """csrc/philox.cu's ``Segment``."""
+
+    _fields_ = [
+        ("out", ctypes.c_void_p), ("value", ctypes.c_void_p), ("plain", ctypes.c_void_p),
+        ("n", ctypes.c_longlong),
+        ("keys", ctypes.c_uint64 * MAX_ROWS), ("counter", ctypes.c_uint64),
+        ("dealer", ctypes.c_uint64), ("draw_counter", ctypes.c_uint64),
+        ("block0", ctypes.c_int), ("blocks", ctypes.c_int), ("rows", ctypes.c_int),
+        ("what", ctypes.c_int), ("xor_share", ctypes.c_int), ("kbits", ctypes.c_int),
+        ("draw_kbits", ctypes.c_int), ("src", ctypes.c_int), ("emit", ctypes.c_int),
+    ]
 
 
 def _lib():
     lib = build.load("philox")
     if not getattr(lib, "_curl_bound", False):
-        lib.philox_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint64), ctypes.c_uint64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        lib.philox_group_launch.argtypes = [
+            ctypes.POINTER(_SegmentArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
-        lib.philox_launch.restype = ctypes.c_int
+        lib.philox_group_launch.restype = ctypes.c_int
+        lib.philox_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.philox_blocks_per_sm.restype = ctypes.c_int
+        lib.philox_rate_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p,
+        ]
+        lib.philox_rate_launch.restype = ctypes.c_int
+        lib.philox_rate_calls.restype = ctypes.c_int
         lib._curl_bound = True
     return lib
+
+
+@dataclass(frozen=True, eq=False)
+class Segment:
+    """One segment of a grouped launch. ``keys``: a draw's stream seeds
+    (one row each), or a sharing's ring seeds (one per party); ``counter``:
+    the draw's, or the sharing streams'; ``kbits``: the bits of a draw's
+    rows or of an XOR sharing's streams (an additive sharing takes 64);
+    ``fresh`` draws v from ``dealer`` at ``draw_counter`` with
+    ``draw_kbits`` bits, and ``emit`` returns v beside the shares."""
+
+    what: str
+    keys: tuple
+    counter: int
+    n: int
+    how: str = "add"
+    kbits: int = 64
+    src: int = 0
+    plain: Optional[torch.Tensor] = None
+    dealer: int = 0
+    draw_counter: int = 0
+    draw_kbits: int = 64
+    emit: bool = False
+
+    @property
+    def tag(self) -> str:
+        """The launch-count key of a one-segment group (the first slices'
+        mode names where there is one)."""
+        if self.what == "draw":
+            return "draw"
+        base = {"zero": "przs", "plain": "share", "plain_lane": "share_lane",
+                "fresh": "fresh"}[self.what]
+        return base + ("_xor" if self.how == "xor" else "")
+
+    def signature(self) -> tuple:
+        """What the kernel's work depends on: (what, how, keys, n, kbits,
+        src, draw_kbits, emit)."""
+        return (self.what, self.how, len(self.keys), self.n, self.kbits, self.src,
+                self.draw_kbits, self.emit)
 
 
 def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
@@ -106,7 +191,7 @@ def _check(mode, keys, n, plain, src, kbits):
 
 
 def plain_philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=None):
-    """The kernel's function in plain torch (any device)."""
+    """The first slices' modes in plain torch (any device)."""
     _check(mode, keys, n, plain, src, kbits)
     device = plain.device if plain is not None else device
     rows = [stream(k, counter, n, device) for k in keys]
@@ -123,25 +208,186 @@ def plain_philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=Non
     return out
 
 
-def philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=None):
-    """(rows, n) int64: the kernel on a CUDA device, the plain version on
-    the CPU. ``keys``: 64-bit seeds (Python ints); ``counter``: the draw."""
-    device = torch.device(plain.device if plain is not None else device)
+def _check_segment(seg: Segment):
+    if seg.what not in WHATS:
+        raise ValueError(f"unknown philox segment {seg.what!r}")
+    if seg.how not in HOWS:
+        raise ValueError(f"philox sharing is 'add' or 'xor', not {seg.how!r}")
+    if not 1 <= len(seg.keys) <= MAX_ROWS:
+        raise ValueError(f"philox takes 1 to {MAX_ROWS} keys, got {len(seg.keys)}")
+    if not 0 <= seg.n <= MAX_N:
+        raise ValueError(f"philox n {seg.n} outside 0..{MAX_N}")
+    for bits in (seg.kbits, seg.draw_kbits):
+        if not 1 <= bits <= 64:
+            raise ValueError(f"kbits {bits} outside 1..64")
+    if not all(0 <= k <= _M64 for k in (*seg.keys, seg.counter, seg.dealer, seg.draw_counter)):
+        raise ValueError("philox keys and counters are 64-bit unsigned")
+    if seg.what != "draw":
+        if not 0 <= seg.src < len(seg.keys):
+            raise ValueError(f"src {seg.src} outside the {len(seg.keys)} parties")
+        if seg.how == "add" and seg.kbits != 64:
+            raise ValueError("an additive sharing takes 64-bit streams")
+    if seg.emit and seg.what != "fresh":
+        raise ValueError("only a fresh draw can be emitted")
+    if seg.what in ("plain", "plain_lane"):
+        want = (seg.n,) if seg.what == "plain" else (len(seg.keys), seg.n)
+        p = seg.plain
+        if p is None or p.dtype != torch.int64 or tuple(p.shape) != want:
+            raise ValueError(f"philox {seg.what} takes an int64 plain of shape {want}")
+        if not p.is_contiguous():
+            raise ValueError("philox plain must be contiguous")
+    elif seg.plain is not None:
+        raise ValueError(f"a philox {seg.what} segment takes no plain")
+
+
+def _check_group(segments):
+    if not 1 <= len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"a philox group takes 1 to {MAX_SEGMENTS} segments, got {len(segments)}")
+    for seg in segments:
+        _check_segment(seg)
+
+
+def _plain_segment(seg: Segment, device) -> torch.Tensor:
+    """One segment as the TFP dealer computed it before the group: the
+    plain_philox calls and torch ops, in order."""
+    keys, P = list(seg.keys), len(seg.keys)
+    if seg.what == "draw":
+        return plain_philox("draw", keys, seg.counter, seg.n, kbits=seg.kbits, device=device)
+    if seg.what == "fresh":
+        v = plain_philox("draw", [seg.dealer], seg.draw_counter, seg.n, kbits=seg.draw_kbits,
+                         device=device)[0]
+    else:
+        v = seg.plain
+    if seg.how == "add":
+        if seg.what == "zero":
+            out = plain_philox("przs", keys, seg.counter, seg.n, device=device)
+        elif seg.what == "plain_lane":
+            out = plain_philox("share_lane", keys, seg.counter, seg.n, plain=v, src=seg.src)
+        else:
+            out = plain_philox("share", keys, seg.counter, seg.n, plain=v, src=seg.src)
+    else:  # the per-call XOR sharing: a 2-row draw, a roll and a masked XOR
+        ring = plain_philox("draw", keys, seg.counter, seg.n, kbits=seg.kbits, device=device)
+        out = torch.roll(ring, 1, dims=0) ^ ring
+        if v is not None:
+            mask = torch.zeros((P, 1), dtype=torch.int64, device=device)
+            mask[seg.src] = 1
+            out = out ^ (v * mask if seg.what != "plain_lane" else v[seg.src] * mask)
+    return (out, v) if seg.emit else out
+
+
+def plain_philox_group(segments, device=None):
+    """The group's function in plain torch (any device): one output per
+    segment, as ``philox_group``'s."""
+    _check_group(segments)
+    return [_plain_segment(seg, seg.plain.device if seg.plain is not None else device)
+            for seg in segments]
+
+
+def plan(segments, sms: int, blocks_per_sm: int = BLOCKS_PER_SM) -> dict:
+    """The launch's blocks: segment s gets ``blocks[s]`` blocks from
+    ``block0[s]`` on, enough for ``PAIRS_IN_FLIGHT`` pairs a thread and at
+    most a wave of the card (``sms * blocks_per_sm``); a segment of no
+    elements none."""
+    cap = max(1, sms * blocks_per_sm)
+    block0, blocks, total = [], [], 0
+    for seg in segments:
+        pairs = (seg.n + 1) // 2
+        b = min(-(-pairs // (THREADS * PAIRS_IN_FLIGHT)), cap)
+        block0.append(total)
+        blocks.append(b)
+        total += b
+    return {"block0": block0, "blocks": blocks, "grid": total}
+
+
+def _device_of(segments, device):
+    for seg in segments:
+        if seg.plain is not None:
+            return seg.plain.device
+    return torch.device(device)
+
+
+_blocks_per_sm = {}
+
+
+def _resident_blocks(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _blocks_per_sm:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            build.check(_lib().philox_blocks_per_sm(ctypes.byref(n)), "philox occupancy")
+        _blocks_per_sm[idx] = max(1, n.value)
+    return _blocks_per_sm[idx]
+
+
+def philox_group(segments, device=None):
+    """One output per segment: ``(rows, n)`` for a draw, ``(P, n)`` for a
+    sharing, the pair ``((P, n), (n,))`` of shares and v for an emitted
+    fresh draw (v in its own buffer, so that the shares do not keep it
+    alive). One launch of the kernel on a CUDA device; the plain version
+    on the CPU."""
+    segments = list(segments)
+    device = _device_of(segments, device)
     if device.type != "cuda":
-        return plain_philox(mode, keys, counter, n, plain, src, kbits, device)
-    _check(mode, keys, n, plain, src, kbits)
-    out = torch.empty((len(keys), n), dtype=torch.int64, device=device)
-    if n == 0:
-        return out
-    seeds = (ctypes.c_uint64 * MAX_ROWS)(*[k & ((1 << 64) - 1) for k in keys])
+        return plain_philox_group(segments, device)
+    _check_group(segments)
+    for seg in segments:
+        if seg.plain is not None and seg.plain.device != device:
+            raise ValueError(f"philox plain on {seg.plain.device}, not {device}")
+    outs = [torch.empty((len(seg.keys), seg.n), dtype=torch.int64, device=device)
+            for seg in segments]
+    values = [torch.empty(seg.n, dtype=torch.int64, device=device) if seg.emit else None
+              for seg in segments]
+    live = [(seg, out, value) for seg, out, value in zip(segments, outs, values) if seg.n > 0]
+    outs = [out if value is None else (out, value) for out, value in zip(outs, values)]
+    if not live:
+        return outs
+    p = plan([seg for seg, _, _ in live],
+             torch.cuda.get_device_properties(device).multi_processor_count,
+             _resident_blocks(device))
+    args = (_SegmentArgs * len(live))()
+    for i, (a, (seg, out, value)) in enumerate(zip(args, live)):
+        a.out = out.data_ptr()
+        a.value = value.data_ptr() if value is not None else None
+        a.plain = seg.plain.data_ptr() if seg.plain is not None else None
+        a.n = seg.n
+        for r, k in enumerate(seg.keys):
+            a.keys[r] = k
+        a.counter, a.dealer, a.draw_counter = seg.counter, seg.dealer, seg.draw_counter
+        a.block0, a.blocks = p["block0"][i], p["blocks"][i]
+        a.rows, a.what, a.xor_share = len(seg.keys), WHATS[seg.what], int(seg.how == "xor")
+        a.kbits, a.draw_kbits, a.src, a.emit = seg.kbits, seg.draw_kbits, seg.src, int(seg.emit)
     with torch.cuda.device(device):
         stream_ptr = torch.cuda.current_stream(device).cuda_stream
-        rc = _lib().philox_launch(
-            out.data_ptr(), n, len(keys), MODES[mode], seeds, counter & ((1 << 64) - 1),
-            plain.data_ptr() if plain is not None else None, src, kbits, stream_ptr,
-        )
+        rc = _lib().philox_group_launch(args, len(live), p["grid"], stream_ptr)
     build.check(rc, "philox")
+    mode = "+".join(sorted({seg.tag for seg in segments}))
     launches[mode] = launches.get(mode, 0) + 1
+    return outs
+
+
+def philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=None):
+    """(rows, n) int64 of one of the first slices' modes: a one-segment
+    group. ``keys``: 64-bit seeds (Python ints); ``counter``: the draw."""
+    _check(mode, keys, n, plain, src, kbits)
+    seg = Segment(MODES[mode], tuple(k & _M64 for k in keys), counter & _M64, n,
+                  kbits=kbits if mode == "draw" else 64, src=src, plain=plain)
+    return philox_group([seg], device)[0]
+
+
+def rate_calls() -> int:
+    """Philox calls a thread of the kernel ``philox_rate_kernel``."""
+    return _lib().philox_rate_calls()
+
+
+def launch_rate(threads: int, device, twice: bool = False) -> torch.Tensor:
+    """The Philox-only kernel: ``threads`` x ``rate_calls()`` (x 2 with
+    ``twice``) calls, one XOR-folded uint32 a thread (as int32)."""
+    out = torch.empty(threads, dtype=torch.int32, device=device)
+    with torch.cuda.device(out.device):
+        stream_ptr = torch.cuda.current_stream(out.device).cuda_stream
+        rc = _lib().philox_rate_launch(out.data_ptr(), threads, int(twice), 0x0123456789ABCDEF,
+                                       stream_ptr)
+    build.check(rc, "philox_rate")
     return out
 
 

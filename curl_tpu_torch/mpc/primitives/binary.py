@@ -34,10 +34,7 @@ class BinarySharedTensor:
         ``per_party``: ``value`` is (P, ...) and only row ``src`` enters
         (each party sharing its own local value, as in A2B)."""
         value = ring.to_ring(value, comm.get_device())
-        shape = tuple(value.shape[1:] if per_party else value.shape)
-        share = rng.przs_binary(shape)
-        contribution = value * comm.rank_mask(src, len(shape))
-        return cls(share ^ contribution)
+        return cls(rng.xor_share(value, src, per_party))
 
     @classmethod
     def from_shares(cls, share):

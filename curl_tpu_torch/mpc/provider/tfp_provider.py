@@ -3,8 +3,12 @@
 Counterpart of ``curl_tpu/mpc/provider/tfp_provider.py``. Every tuple
 plaintext is drawn once from the dealer stream, without a party axis (the
 JAX package draws it once per program under the simulated-party runtime),
-and shared by PRZS with party 0 adding the plaintext: one Philox ``share``
-launch per tuple component.
+and shared by PRZS with party 0 adding (or XORing) the plaintext. A call
+reserves its draw counters in order (draws first, then shares), then hands
+its draws and shares to one grouped Philox launch, or two where a dealer
+product (``c = op(a, b)``, ``r * r``, ``a & b``, ``r mod L``) stands between
+the draw and its sharing: a fresh segment draws and shares a plaintext in
+one pass.
 """
 
 from __future__ import annotations
@@ -23,10 +27,8 @@ def _share_from_local(value, precision: int = 0) -> ArithmeticSharedTensor:
     return ArithmeticSharedTensor.from_shares(rng.przs_share(value), precision=precision)
 
 
-def _bshare_from_local(value) -> BinarySharedTensor:
-    share = rng.przs_binary(tuple(value.shape))
-    share = share ^ (value * comm.rank_mask(0, value.dim()))
-    return BinarySharedTensor.from_shares(share)
+def _arith(out, shape) -> ArithmeticSharedTensor:
+    return ArithmeticSharedTensor.from_shares(rng.shares(out, shape), precision=0)
 
 
 def _ring_op(op):
@@ -39,51 +41,70 @@ class TrustedFirstParty(TupleProvider):
     NAME = "TFP"
 
     def generate_additive_triple(self, size0, size1, op):
-        """Beaver triple (a, b, c = op(a, b)); c is one dealer product."""
-        a = rng.random_ring(size0, rng.dealer_stream())
-        b = rng.random_ring(size1, rng.dealer_stream())
-        c = _ring_op(op)(a, b)
-        return _share_from_local(a), _share_from_local(b), _share_from_local(c)
+        """Beaver triple (a, b, c = op(a, b)); c is one dealer product.
+        Two launches: a and b drawn and shared, then c shared."""
+        draw_a, draw_b, share_a, share_b, share_c = rng.reserve_counts(5)
+        (da, a), (db, b) = rng.launch([
+            rng.segment_fresh(size0, 64, draw_a, share_a, emit=True),
+            rng.segment_fresh(size1, 64, draw_b, share_b, emit=True)])
+        c = _ring_op(op)(a.reshape(tuple(size0)), b.reshape(tuple(size1)))
+        (dc,) = rng.launch([rng.segment_share(c, share_c)])
+        return _arith(da, size0), _arith(db, size1), _arith(dc, c.shape)
 
     def square(self, size):
-        r = rng.random_ring(size, rng.dealer_stream())
-        return _share_from_local(r), _share_from_local(r * r)
+        draw_r, share_r, share_r2 = rng.reserve_counts(3)
+        ((dr, r),) = rng.launch([rng.segment_fresh(size, 64, draw_r, share_r, emit=True)])
+        r = r.reshape(tuple(size))
+        (dr2,) = rng.launch([rng.segment_share(r * r, share_r2)])
+        return _arith(dr, size), _arith(dr2, r.shape)
 
     def generate_binary_triple(self, size0, size1):
-        a = rng.random_kbit(size0, 64, rng.dealer_stream())
-        b = rng.random_kbit(size1, 64, rng.dealer_stream())
-        c = a & b
+        """a, b and c = a & b XOR-shared at the broadcast shape: two
+        launches, the draws, then the three sharings."""
+        draw_a, draw_b, *share = rng.reserve_counts(5)
+        da, db = rng.launch([rng.segment_draw(size0, 64, rng.dealer_stream(), draw_a),
+                             rng.segment_draw(size1, 64, rng.dealer_stream(), draw_b)])
+        a, b = da[0].reshape(tuple(size0)), db[0].reshape(tuple(size1))
         shape = torch.broadcast_shapes(tuple(size0), tuple(size1))
-        return tuple(_bshare_from_local(v.expand(shape)) for v in (a, b, c))
+        outs = rng.launch([rng.segment_share(v.expand(shape), count, how="xor")
+                           for v, count in zip((a, b, a & b), share)])
+        return tuple(BinarySharedTensor.from_shares(rng.shares(out, shape)) for out in outs)
 
     def wrap_rng(self, size):
         """Random share planes and a sharing of their wrap count: the dealer
         draws all P planes, counts their wraps and scatters plane p to
         party p (tfp_provider.py:80)."""
-        planes = torch.stack(
-            [rng.random_ring(size, rng.dealer_stream()) for _ in range(comm.get_world_size())]
-        )
+        counts = rng.reserve_counts(comm.get_world_size())
+        planes = torch.stack([out[0].reshape(tuple(size)) for out in rng.launch(
+            [rng.segment_draw(size, 64, rng.dealer_stream(), c) for c in counts])])
         theta_r = ring.count_wraps(planes)
         r = ArithmeticSharedTensor.from_shares(comm.scatter(planes, src=0), precision=0)
         return r, _share_from_local(theta_r)
 
     def B2A_rng(self, size):
-        r = rng.random_kbit(size, 1, rng.dealer_stream())
-        return _share_from_local(r), _bshare_from_local(r)
+        """One 1-bit dealer draw, shared additively and by XOR in one launch
+        (the XOR sharing's streams are 64-bit, as przs_binary's)."""
+        draw_r, share_a, share_b = rng.reserve_counts(3)
+        da, db = rng.launch([rng.segment_fresh(size, 1, draw_r, share_a),
+                             rng.segment_fresh(size, 1, draw_r, share_b, how="xor")])
+        return _arith(da, size), BinarySharedTensor.from_shares(rng.shares(db, size))
 
     def generate_lut_masks(self, tensor_size, lut_size: int, n_tables: int):
         """Gather-form one-hot tuple: (r_clear, [r], output PRZS masks); see
-        the JAX package's generate_lut_masks for the algebra."""
-        r = rng.random_ring(tensor_size, rng.dealer_stream())
-        r_clear = torch.remainder(r, lut_size)
-        r_shares = _share_from_local(r_clear)
-        masks = [rng.przs_arithmetic(tuple(tensor_size)) for _ in range(n_tables)]
-        return r_clear, r_shares, masks
+        the JAX package's generate_lut_masks for the algebra. Two launches:
+        r drawn, then r mod L shared beside the masks."""
+        draw_r, share_r, *masks = rng.reserve_counts(2 + n_tables)
+        (dr,) = rng.launch([rng.segment_draw(tensor_size, 64, rng.dealer_stream(), draw_r)])
+        r_clear = torch.remainder(dr[0].reshape(tuple(tensor_size)), lut_size)
+        outs = rng.launch([rng.segment_share(r_clear, share_r)]
+                          + [rng.segment_zero(tensor_size, c) for c in masks])
+        return (r_clear, _arith(outs[0], tensor_size),
+                [rng.shares(out, tensor_size) for out in outs[1:]])
 
     def egk_trunc_pr_rng(self, size, l: int, m: int):
-        """(r, r', b) randomness for EGK truncation."""
-        r = rng.random_kbit(size, l - m, rng.dealer_stream())
-        r_p = rng.random_kbit(size, m, rng.dealer_stream())
-        b = rng.random_kbit(size, 1, rng.dealer_stream())
-        return _share_from_local(r), _share_from_local(r_p), _share_from_local(b)
-
+        """(r, r', b) randomness for EGK truncation: three dealer draws of
+        l - m, m and 1 bits, drawn and shared in one launch."""
+        counts = rng.reserve_counts(6)
+        outs = rng.launch([rng.segment_fresh(size, bits, counts[i], counts[3 + i])
+                           for i, bits in enumerate((l - m, m, 1))])
+        return tuple(_arith(out, size) for out in outs)

@@ -18,8 +18,11 @@ A draw is (stream seed, draw counter, element index) -> 64 bits: the counter
 advances once per draw and restarts in ``init`` (``reset_count``), so a
 seeded session replays the same randomness whatever ran before it. Dealer
 and global draws carry no party axis (computed once); per-party draws come
-back as (P, ...). On a CUDA device every bulk draw and share is one launch
-of the Philox kernel (``kernels/philox.py``); on the CPU its plain version.
+back as (P, ...). On a CUDA device the draws and shares of one call are
+segments (``kernels/philox.Segment``) of one grouped launch of the Philox
+kernel (``launch``): the TFP dealer reserves a call's draw counters in order
+(``reserve_counts``), then hands its segments over together. On the CPU the
+kernel's plain version runs.
 
 The streams will never match the JAX package's threefry or the TPU's
 hardware PRNG: compare decoded values and invariants, never shares.
@@ -33,7 +36,7 @@ import threading
 import torch
 
 from . import comm
-from .kernels.philox import philox
+from .kernels.philox import MAX_SEGMENTS, Segment, philox_group
 
 _M64 = (1 << 64) - 1
 
@@ -49,6 +52,15 @@ def _next_count() -> int:
         c = _counter
         _counter += 1
         return c
+
+
+def reserve_counts(k: int) -> list:
+    """k consecutive draw counters, as k calls of ``_next_count`` give them."""
+    global _counter
+    with _counter_lock:
+        c = _counter
+        _counter += k
+        return list(range(c, c + k))
 
 
 def reset_count():
@@ -141,14 +153,64 @@ def _numel(shape) -> int:
     return math.prod(shape) if shape else 1
 
 
+def _flat(value: torch.Tensor, per_party: bool) -> torch.Tensor:
+    P = len(current_keys()["next"])
+    return value.reshape((P, -1) if per_party else (-1,)).contiguous()
+
+
+def segment_draw(shape, bitlength: int, generator: str, counter: int) -> Segment:
+    """Uniform k-bit values in [0, 2^bitlength) of ``generator``'s streams."""
+    return Segment("draw", tuple(current_keys()[generator]), counter, _numel(tuple(shape)),
+                   kbits=min(bitlength, 64))
+
+
+def segment_zero(shape, counter: int, how: str = "add", bits: int = 64) -> Segment:
+    """A sharing of zero over the ring streams: additive (PRZS) or XOR of
+    ``bits``-bit streams."""
+    return Segment("zero", tuple(current_keys()["next"]), counter, _numel(tuple(shape)),
+                   how=how, kbits=bits)
+
+
+def segment_share(value: torch.Tensor, counter: int, src: int = 0, per_party: bool = False,
+                  how: str = "add") -> Segment:
+    """A dealer sharing of ``value``: a sharing of zero plus (or XOR)
+    ``value`` on party ``src``; ``per_party``: value is (P,) + S and only
+    row src enters."""
+    flat = _flat(value, per_party)
+    return Segment("plain_lane" if per_party else "plain", tuple(current_keys()["next"]),
+                   counter, flat.shape[-1], how=how, src=src, plain=flat)
+
+
+def segment_fresh(shape, bitlength: int, draw_counter: int, counter: int, how: str = "add",
+                  emit: bool = False) -> Segment:
+    """A dealer draw of ``bitlength`` bits at ``draw_counter``, shared on
+    party 0 in the same pass (``emit``: returned beside the shares)."""
+    keys = current_keys()
+    return Segment("fresh", tuple(keys["next"]), counter, _numel(tuple(shape)), how=how,
+                   dealer=keys["dealer"][0], draw_counter=draw_counter,
+                   draw_kbits=min(bitlength, 64), emit=emit)
+
+
+def launch(segments) -> list:
+    """The segments' outputs (``kernels/philox.philox_group``): one launch
+    per ``MAX_SEGMENTS`` segments."""
+    segments = list(segments)
+    out = []
+    for i in range(0, len(segments), MAX_SEGMENTS):
+        out += philox_group(segments[i:i + MAX_SEGMENTS], device=comm.get_device())
+    return out
+
+
+def shares(out: torch.Tensor, shape) -> torch.Tensor:
+    """A sharing segment's output as its (P,) + shape share."""
+    return out.reshape((out.shape[0],) + tuple(shape))
+
+
 def random_kbit(shape, bitlength: int = 64, generator: str = "local"):
     """Uniform k-bit values in [0, 2^bitlength): (shape) for a shared stream,
     (P,) + shape for a per-party one."""
     shape = tuple(shape)
-    rows = philox(
-        "draw", current_keys()[generator], _next_count(), _numel(shape),
-        kbits=min(bitlength, 64), device=comm.get_device(),
-    )
+    (rows,) = launch([segment_draw(shape, bitlength, generator, _next_count())])
     if generator in _SHARED:
         return rows[0].reshape(shape)
     return rows.reshape((rows.shape[0],) + shape)
@@ -162,10 +224,8 @@ def random_ring(shape, generator: str = "local"):
 def przs_arithmetic(shape):
     """Pseudo-random sharing of zero, (P,) + shape: prev-stream minus
     next-stream draw, one Philox launch for all parties."""
-    shape = tuple(shape)
-    ring = current_keys()["next"]
-    out = philox("przs", ring, _next_count(), _numel(shape), device=comm.get_device())
-    return out.reshape((len(ring),) + shape)
+    (out,) = launch([segment_zero(shape, _next_count())])
+    return shares(out, shape)
 
 
 def przs_share(value: torch.Tensor, src: int = 0, per_party: bool = False):
@@ -174,18 +234,20 @@ def przs_share(value: torch.Tensor, src: int = 0, per_party: bool = False):
     ``value`` is party-invariant (shape S) by default, or per party
     ((P,) + S, ``per_party=True``) where only party src's row enters the
     share sum. One fused Philox launch writes only the (P,) + S share."""
-    ring = current_keys()["next"]
-    P = len(ring)
     shape = tuple(value.shape[1:] if per_party else value.shape)
-    flat = value.reshape((P, -1) if per_party else (-1,)).contiguous()
-    out = philox(
-        "share_lane" if per_party else "share", ring, _next_count(), _numel(shape),
-        plain=flat, src=src,
-    )
-    return out.reshape((P,) + shape)
+    (out,) = launch([segment_share(value, _next_count(), src, per_party)])
+    return shares(out, shape)
 
 
 def przs_binary(shape, bits: int = 64):
     """XOR sharing of zero, (P,) + shape: prev ^ next ring streams."""
-    ring = random_kbit(shape, bits, "next")
-    return torch.roll(ring, 1, dims=0) ^ ring
+    (out,) = launch([segment_zero(shape, _next_count(), "xor", bits)])
+    return shares(out, shape)
+
+
+def xor_share(value: torch.Tensor, src: int = 0, per_party: bool = False):
+    """XOR sharing of a plaintext: ``przs_binary`` XOR ``value`` on party
+    ``src`` (``per_party`` as in ``przs_share``), in one launch."""
+    shape = tuple(value.shape[1:] if per_party else value.shape)
+    (out,) = launch([segment_share(value, _next_count(), src, per_party, "xor")])
+    return shares(out, shape)

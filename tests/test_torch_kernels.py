@@ -77,6 +77,27 @@ def test_philox_kernel_matches_plain_on_card():
                      ("share_lane", {"plain": torch.stack([plain, -plain]), "src": 1})):
         got = philox.philox(mode, keys, 4, 1001, device="cuda", **kw)
         assert torch.equal(got, philox.plain_philox(mode, keys, 4, 1001, device="cuda", **kw))
+    # one grouped launch of mixed segments: every kind, additive and XOR,
+    # odd n, n = 1, rows 1-8, emitted draws
+    lane = torch.stack([plain, -plain, plain + 7])
+    S = philox.Segment
+    segments = [
+        S("draw", (11,), 1, 1), S("draw", tuple(range(1, 9)), 2, 1001, kbits=20),
+        S("zero", (3, 5), 3, 1001), S("zero", (3, 5, 7), 4, 999, how="xor", kbits=1),
+        S("plain", (3, 5), 5, 1001, plain=plain, src=1),
+        S("plain", (3, 5), 6, 1001, how="xor", plain=plain),
+        S("plain_lane", (3, 5, 7), 7, 1001, plain=lane, src=2),
+        S("plain_lane", (3, 5, 7), 8, 1001, how="xor", kbits=64, plain=lane, src=1),
+        S("fresh", (3, 5), 9, 1001, dealer=13, draw_counter=1, emit=True),
+        S("fresh", (3, 5), 10, 1, dealer=13, draw_counter=2, draw_kbits=1),
+        S("fresh", (3, 5), 11, 1001, how="xor", dealer=13, draw_counter=2, draw_kbits=1),
+        S("fresh", tuple(range(1, 9)), 12, 257, dealer=13, draw_counter=3, draw_kbits=48,
+          emit=True),
+    ]
+    got = philox.philox_group(segments, "cuda")
+    for seg, a, b in zip(segments, got, philox.plain_philox_group(segments, "cuda")):
+        a, b = (a, b) if seg.emit else ((a,), (b,))  # emitted: (shares, value)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), seg.signature()
 
 
 def test_fused_kernels_refuse_cpu_tensors_and_bad_arguments():
