@@ -617,17 +617,34 @@ def check_philox(dev, gen):
 # Phase 3b: the fused protocol kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# the kinds of launch of the fused protocol kernels, as recording_launches
+# names them: fused_mul's per-op launch and its chain of squarings; ltz;
+# max_step's single step and its two scan_reduction chains
+FUSED_KINDS = ("fused_mul", "square_chain", "ltz", "max_step", "fold", "butterfly")
+
+
 def fused_name(spec):
-    if spec["kind"] == "fused_mul":
+    kind = spec["kind"]
+    if kind == "fused_mul":
         return f"fused_mul {spec['op']}+{spec['trunc']} m={spec['m']}"
-    return spec["kind"]
+    if kind == "square_chain":
+        return f"fused_mul square+{spec['trunc']} m={spec['m']} chain of {spec['steps']}"
+    if kind == "butterfly":
+        return f"max_step butterfly chain of {spec['steps']}"
+    return "max_step fold chain" if kind == "fold" else kind
 
 
 def fused_spec(kind, sig):
-    """A launch of fused_mul, ltz or max_step as a spec: its op, truncation
-    and bits (fused_mul), and its operands' (shape, strides)."""
+    """A launch of a fused protocol kernel as a spec: its op, truncation
+    and bits (fused_mul), steps (the chains), and its operands' (shape,
+    strides)."""
     if kind == "fused_mul":
         return dict(kind=kind, op=sig[0], trunc=sig[1], m=sig[2], operands=list(sig[3:]))
+    if kind == "square_chain":
+        return dict(kind=kind, op="square", trunc=sig[0], m=sig[1], steps=sig[2],
+                    operands=list(sig[3:]))
+    if kind == "butterfly":
+        return dict(kind=kind, steps=sig[0], operands=list(sig[1:]))
     return dict(kind=kind, operands=list(sig))
 
 
@@ -635,11 +652,18 @@ def fused_run(spec, ops, count, plain=False):
     """One launch of the spec's kernel (or its plain version) on ``ops``."""
     from curl_tpu_torch.kernels import fused_mul, max_step
 
-    if spec["kind"] == "fused_mul":
+    kind = spec["kind"]
+    if kind == "fused_mul":
         fn = fused_mul.plain if plain else fused_mul.launch
         y = ops[1] if len(ops) > 1 else None
         return fn(spec["op"], spec["trunc"], spec["m"], ops[0], y, FUSED_KEY, count)
-    fn = getattr(max_step, ("plain_" if plain else "launch_") + spec["kind"])
+    if kind == "square_chain":
+        fn = fused_mul.plain_square_chain if plain else fused_mul.launch_square_chain
+        return fn(spec["trunc"], spec["m"], ops[0], spec["steps"], FUSED_KEY, count)
+    name = {"fold": "fold_chain", "butterfly": "butterfly_chain"}.get(kind, kind)
+    fn = getattr(max_step, ("plain_" if plain else "launch_") + name)
+    if kind == "butterfly":
+        return fn(ops[0], spec["steps"], FUSED_KEY, count)
     return fn(*ops, FUSED_KEY, count)
 
 
@@ -648,43 +672,92 @@ def fused_work(spec):
     element read once (a broadcast operand at its own size) and both result
     shares written once; ceil(k/2) Philox calls for each draw slot over k
     elements or words (one call gives two 64-bit draws) and the protocol's
-    64-bit products."""
+    64-bit products, for each step of a chain. A chain's intermediate
+    shares are not bytes: they never need to leave the chip."""
     from curl_tpu_torch.kernels import fused_mul, max_step
 
+    kind = spec["kind"]
     shapes = [shape for shape, _ in spec["operands"]]
-    n = math.prod(torch.broadcast_shapes(*[tuple(s[1:]) for s in shapes]))
+    if kind == "fold":  # the (2, ..., G, W) chunks -> a (2, ..., W) carry
+        n, steps = math.prod(shapes[0][1:]) // shapes[0][-2], shapes[0][-2] - 1
+    else:
+        n = math.prod(torch.broadcast_shapes(*[tuple(s[1:]) for s in shapes]))
+        steps = spec.get("steps", 1)
     nbytes = (sum(_distinct_numel(shape, st) for shape, st in spec["operands"]) + 2 * n) * 8
-    if spec["kind"] == "fused_mul":
+    if kind in ("fused_mul", "square_chain"):
         size = {"x": math.prod(shapes[0][1:]), "y": math.prod(shapes[-1][1:]), "out": n}
         calls = sum((size[s] + 1) // 2 for s in fused_mul.slot_spaces(spec["op"], spec["trunc"]))
         mul64 = {"mul": 5, "square": 4, "trunc": 0}[spec["op"]] * n
     else:
-        calls = max_step.DRAWS[spec["kind"]] * (((n + 1) // 2 + 1) // 2)
-        mul64 = 5 * n if spec["kind"] == "max_step" else 0
-    return nbytes, calls * PHILOX_OPS + mul64 * MUL64_OPS
+        draws = max_step.DRAWS["ltz" if kind == "ltz" else "max_step"]
+        calls = draws * (((n + 1) // 2 + 1) // 2)
+        mul64 = 0 if kind == "ltz" else 5 * n
+    return nbytes, steps * (calls * PHILOX_OPS + mul64 * MUL64_OPS)
+
+
+# phase 3b's launches beyond the flat (2, n) variants: element-pair
+# fused_mul on broadcast, strided and odd layouts, and the chains at the
+# paths' sizes, (kind, signature, label); a broadcast dim has stride 0
+FUSED_LAYOUTS = (
+    ("fused_mul", ("mul", "egk", 16, ((2, 1, 64, 768), (49152, 49152, 768, 1)),
+                   ((2, 1, 64, 1), (64, 64, 1, 1))), "LayerNorm's rescale, a broadcast column"),
+    ("fused_mul", ("mul", "egk", 16, ((2, 1, 64, 768), (49152, 49152, 768, 1)),
+                   ((2, 768), (768, 1))), "a broadcast row"),
+    ("fused_mul", ("mul", "egk", 16, ((2, 333, 301), (100233, 1, 333)),
+                   ((2, 333, 1), (333, 1, 1))), "odd n, x transposed, y a broadcast column"),
+    ("fused_mul", ("square", "crypten", 16, ((2, 1, 12, 64, 64), (49152, 49152, 64, 768, 1))),
+     "attention scores, strided"),
+    ("square_chain", ("crypten", 16, 8, ((2, 1, 12, 64, 64), (49152, 49152, 4096, 64, 1))),
+     "exp, attention 12 x 64 x 64"),
+    ("square_chain", ("crypten", 16, 8, ((2, 1, 16, 64, 64), (65536, 65536, 4096, 64, 1))),
+     "exp, GPT-Neo attention 16 x 64 x 64"),
+    ("square_chain", ("crypten", 16, 8, ((2, 1, 64, 50257), (3216448, 3216448, 50257, 1))),
+     "exp, vocab softmax 64 x 50257"),
+    ("square_chain", ("crypten", 16, 8, ((2, 100003), (100003, 1))), "exp, odd n"),
+    ("fold", (((2, 1, 64, 32, 2048), (4194304, 4194304, 65536, 2048, 1)),),
+     "vocab fold, 64 x 32 x 2048, 31 steps"),
+    ("fold", (((2, 1, 64, 8, 256), (131072, 131072, 2048, 256, 1)),),
+     "vocab cascade, 64 x 8 x 256, 7 steps"),
+    ("fold", (((2, 1, 64, 2, 128), (16384, 16384, 256, 128, 1)),),
+     "vocab cascade, 64 x 2 x 128, 1 step"),
+    ("fold", (((2, 3, 7, 333), (6993, 2331, 333, 1)),), "odd carry, 3 x 7 x 333"),
+    ("butterfly", (6, ((2, 1, 12, 64, 64), (49152, 49152, 4096, 64, 1))),
+     "attention tail, 12 x 64 x 64"),
+    ("butterfly", (6, ((2, 1, 16, 64, 64), (65536, 65536, 4096, 64, 1))),
+     "GPT-Neo attention tail, 16 x 64 x 64"),
+    ("butterfly", (7, ((2, 1, 64, 128), (8192, 8192, 128, 1))), "vocab tail, 64 x 128"),
+    ("butterfly", (6, ((2, 1, 5, 64), (320, 320, 64, 1))),
+     "rows that do not pair (5): the step kernel once a step"),
+)
 
 
 def check_fused(dev, gen):
     """Each fused kernel, at each variant the path uses, bit for bit against
-    its plain version on fresh contiguous (2, n) operands; timed."""
+    its plain version on fresh contiguous (2, n) operands; then element-pair
+    fused_mul on other layouts and the chains at the paths' sizes; timed
+    (warm)."""
     count = 0
+    cases = []
     for n, label in FUSED_SIZES:
         flat = ((2, n), (n, 1))
         specs = [dict(kind="fused_mul", op=op, trunc=tr, m=m, operands=[flat] * (1 + (op == "mul")))
                  for op, tr, m in FUSED_VARIANTS]
         specs += [dict(kind="ltz", operands=[flat]), dict(kind="max_step", operands=[flat] * 2)]
-        for spec in specs:
-            count += 1
-            ops = [_strided_i64(gen, shape, st, dev) for shape, st in spec["operands"]]
-            got = fused_run(spec, ops, count)
-            if not torch.equal(got, fused_run(spec, ops, count, plain=True)):
-                raise AssertionError(f"{fused_name(spec)} n={n}: kernel != plain")
-            ms = cuda_ms(lambda: fused_run(spec, ops, count), 10)
-            plain_ms = cuda_ms(lambda: fused_run(spec, ops, count, plain=True), 2)
-            b, by = bound(*fused_work(spec))
-            log(f"[fused] {fused_name(spec)} n={n} ({label}): bit-exact vs plain; {ms:.4f} ms "
-                f"(plain {plain_ms:.3f} ms, bound {b:.5f} ms by {by})")
-            del ops, got
+        cases += [(spec, f"n={n} ({label})") for spec in specs]
+    cases += [(fused_spec(kind, sig), label) for kind, sig, label in FUSED_LAYOUTS]
+    for spec, label in cases:
+        count += 1
+        ops = [_strided_i64(gen, shape, st, dev) for shape, st in spec["operands"]]
+        got = fused_run(spec, ops, count)
+        if not torch.equal(got, fused_run(spec, ops, count, plain=True)):
+            raise AssertionError(f"{fused_name(spec)} {label}: kernel != plain")
+        ms = cuda_ms(lambda: fused_run(spec, ops, count), 10)
+        plain_ms = cuda_ms(lambda: fused_run(spec, ops, count, plain=True),
+                           1 if spec.get("steps", 1) > 1 or spec["kind"] == "fold" else 2)
+        b, by = bound(*fused_work(spec))
+        log(f"[fused] {fused_name(spec)} {label}: bit-exact vs plain; {ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {b:.5f} ms by {by}, {ms / b:.2f}x)")
+        del ops, got
         torch.cuda.empty_cache()
 
 
@@ -878,14 +951,15 @@ def recording_launches():
     """Count, by launch signature, every kernel launch made while the
     context is open (the wrappers' own launch counts are kept): ring_mm by
     its pairs' shapes and strides; philox by its segments' signatures;
-    fused_mul by op, truncation, bits and its operands' shapes and strides;
-    ltz and max_step by their operands' shapes and strides; seed_expand by
-    mode, elements and parties."""
+    fused_mul by op, truncation, bits and its operands' shapes and strides,
+    its chain of squarings ("square_chain") by truncation, bits and steps
+    too; ltz and max_step by their operands' shapes and strides, max_step's
+    chains ("fold", "butterfly") as their own signatures, the butterfly's
+    with its steps; seed_expand by mode, elements and parties."""
     import curl_tpu_torch.random as crandom
     from curl_tpu_torch.kernels import fused_mul, max_step, ring_mm, seed_expand
 
-    calls = {kind: {} for kind in ("ring_mm", "philox", "fused_mul", "ltz", "max_step",
-                                   "seed_expand")}
+    calls = {kind: {} for kind in KINDS}
 
     def note(kind, sig):
         calls[kind][sig] = calls[kind].get(sig, 0) + 1
@@ -908,6 +982,10 @@ def recording_launches():
         note("fused_mul", (op, trunc, m) + layout(*([x] if y is None else [x, y])))
         return orig["fused_mul"](op, trunc, m, x, y, key, count)
 
+    def rec_square_chain(trunc, m, x, steps, key, count):
+        note("square_chain", (trunc, m, steps) + layout(x))
+        return orig["square_chain"](trunc, m, x, steps, key, count)
+
     def rec_ltz(d, key, count):
         note("ltz", layout(d))
         return orig["ltz"](d, key, count)
@@ -916,13 +994,24 @@ def recording_launches():
         note("max_step", layout(carry, rolled))
         return orig["max_step"](carry, rolled, key, count)
 
+    def rec_fold_chain(chunked, key, count):
+        note("fold", layout(chunked))
+        return orig["fold_chain"](chunked, key, count)
+
+    def rec_butterfly_chain(x, steps, key, count):
+        note("butterfly", (steps,) + layout(x))
+        return orig["butterfly_chain"](x, steps, key, count)
+
     def rec_expand(share0, key, parties=2):
         note("seed_expand", ("expand" if parties == 2 else "expand1", share0.numel(), parties))
         return orig["expand"](share0, key, parties)
 
     targets = [(ring_mm, "ring_mm", rec_ring_mm), (crandom, "philox_group", rec_philox_group),
-               (fused_mul, "fused_mul", rec_fused_mul), (max_step, "ltz", rec_ltz),
-               (max_step, "max_step", rec_max_step), (seed_expand, "expand", rec_expand)]
+               (fused_mul, "fused_mul", rec_fused_mul),
+               (fused_mul, "square_chain", rec_square_chain), (max_step, "ltz", rec_ltz),
+               (max_step, "max_step", rec_max_step), (max_step, "fold_chain", rec_fold_chain),
+               (max_step, "butterfly_chain", rec_butterfly_chain),
+               (seed_expand, "expand", rec_expand)]
     orig = {name: getattr(mod, name) for mod, name, _ in targets}
     for mod, name, fn in targets:
         setattr(mod, name, fn)
@@ -940,31 +1029,63 @@ def reset_launches():
         mod.reset_launches()
 
 
+# max_step's launch-count tags: its single step, its chains, and the step
+# launches of a butterfly whose rows do not pair
+MAX_STEP_TAGS = ("max_step", "fold", "butterfly", "butterfly_unpaired")
+
+
 def read_launches():
-    """Launches since the last reset: by kernel (the JSON line's names) and
-    fused_mul by op+truncation."""
+    """Launches since the last reset: by kernel (the JSON line's names),
+    fused_mul by op+truncation (a chain with "+chain") and max_step by tag,
+    and philox by mode."""
     from curl_tpu_torch.kernels import fused_mul, max_step, philox, ring_mm, seed_expand
 
+    steps = {k: n for k, n in max_step.launches.items() if k != "ltz"}
     by_kernel = {"ring_mm": ring_mm.launches.get(1, 0), "ring_mm_acc": ring_mm.launches.get(2, 0),
                  "philox": sum(philox.launches.values()),
                  "fused_mul": sum(fused_mul.launches.values()),
                  "ltz": max_step.launches.get("ltz", 0),
-                 "max_step": max_step.launches.get("max_step", 0),
+                 "max_step": sum(steps.values()),
                  "seed_expand": sum(seed_expand.launches.values())}
-    return by_kernel, dict(fused_mul.launches), dict(philox.launches)
+    return by_kernel, dict(fused_mul.launches, **steps), dict(philox.launches)
+
+
+def unlaunched_chains(by_op):
+    """The chain entries a forward under bench.py's kernel configuration
+    launched no time."""
+    return [name for name, is_tag in CHAIN_TAGS.items() if not any(map(is_tag, by_op))]
 
 
 def recorded_launches(calls):
     """The recorded signatures' launches in read_launches' form."""
+    from curl_tpu_torch.kernels import max_step
+
     by_kernel = {"ring_mm": 0, "ring_mm_acc": 0}
     for sig, n in calls["ring_mm"].items():
         by_kernel["ring_mm" if len(sig) == 1 else "ring_mm_acc"] += n
-    for kind in ("philox", "fused_mul", "ltz", "max_step", "seed_expand"):
+    for kind in ("philox", "ltz", "seed_expand"):
         by_kernel[kind] = sum(calls[kind].values())
     by_op = {}
+
+    def add(tag, n):
+        by_op[tag] = by_op.get(tag, 0) + n
+
     for sig, n in calls["fused_mul"].items():
-        by_op[f"{sig[0]}+{sig[1]}"] = by_op.get(f"{sig[0]}+{sig[1]}", 0) + n
-    return by_kernel, by_op
+        add(f"{sig[0]}+{sig[1]}", n)
+    for sig, n in calls["square_chain"].items():
+        add(f"square+{sig[0]}+chain", n)
+    for sig, n in calls["max_step"].items():
+        add("max_step", n)
+    for sig, n in calls["fold"].items():
+        add("fold", n)
+    for sig, n in calls["butterfly"].items():
+        if max_step.butterfly_pairs(sig[1][0][1:]):
+            add("butterfly", n)
+        else:
+            add("butterfly_unpaired", n * sig[0])
+    by_kernel["fused_mul"] = sum(n for tag, n in by_op.items() if "+" in tag)
+    by_kernel["max_step"] = sum(n for tag, n in by_op.items() if "+" not in tag)
+    return {k: by_kernel[k] for k in PATH_FAMILIES}, by_op
 
 
 def private_hidden(model, xe, skip=None):
@@ -1003,7 +1124,7 @@ def profile_forward(model, xe, best_s):
     port = {}
     for e in events:
         for name in ("ring_mm_kernel", "philox_group_kernel", "fused_mul_kernel",
-                     "step_kernel<false>", "step_kernel<true>", "seed_expand_kernel"):
+                     "step_kernel<0>", "step_kernel<1>", "step_kernel<2>", "seed_expand_kernel"):
             if name in e.key:
                 ms, n = port.get(name, (0.0, 0))
                 port[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -1107,7 +1228,7 @@ def run_forward(dev):
         failures.append(f"forward recorded launches {recorded_launches(calls)} != counted "
                         f"{(launches, by_op)}")
     forward = dict(model=model, xe=xe, ref_hidden=ref_hidden, fault_block=j, sd=sd, tokens=tokens,
-                   calls=calls, launches=launches)
+                   calls=calls, launches=launches, by_op=by_op)
     return forward, failures
 
 
@@ -1184,6 +1305,7 @@ def run_bench_forward(fw):
     missing = [k for k, n in launches.items() if n == 0 and k != "seed_expand"]
     missing += [op for op in ("mul", "square", "trunc")
                 if not any(tag.startswith(op + "+") for tag in by_op)]
+    missing += unlaunched_chains(by_op)
     if missing:
         failures.append(f"bench forward launched no {missing}: {launches}, {by_op}")
     if recorded_launches(calls) != (launches, by_op):
@@ -1192,7 +1314,7 @@ def run_bench_forward(fw):
     for key in ("rounds", "bytes"):
         if stats[key] != stats_off[key]:
             failures.append(f"bench {key} {stats[key]} != {stats_off[key]} with the knobs off")
-    return launches, calls, failures, stats
+    return launches, by_op, calls, failures, stats
 
 
 # ---------------------------------------------------------------------------
@@ -1245,13 +1367,13 @@ def drive(tag, model, xe, reps):
     failures = []
     if not np.isfinite(out).all() or not np.isfinite(hidden).all():
         failures.append(f"{tag} output or final-LN hidden state is not finite")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items() if n == 0] + unlaunched_chains(by_op)
     if missing:
-        failures.append(f"{tag} forward launched no {missing}: {launches}")
+        failures.append(f"{tag} forward launched no {missing}: {launches}, {by_op}")
     if recorded_launches(calls) != (launches, by_op):
         failures.append(f"{tag} recorded launches {recorded_launches(calls)} != counted "
                         f"{(launches, by_op)}")
-    return dict(out=out, hidden=hidden, stats=stats, launches=launches, calls=calls,
+    return dict(out=out, hidden=hidden, stats=stats, launches=launches, by_op=by_op, calls=calls,
                 peak=peak), failures
 
 
@@ -1401,23 +1523,42 @@ def _distinct_numel(shape, stride):
     return math.prod(n for n, st in zip(shape, stride) if st != 0)
 
 
-# The kernels of the JSON line: (name, the recorded kind, which of its
-# signatures, the TPU kernel it replaces, its source)
+# The kernels of the JSON line: (name, the recorded kinds, which of their
+# signatures, the TPU kernel it replaces, its source, the kernel it is a
+# part of). fused_mul and max_step count every launch of their kernels; the
+# chains are also entries of their own, parts of those.
 PATH_KERNELS = (
-    ("ring_mm", "ring_mm", lambda sig: len(sig) == 1, "curl_tpu/ops/pallas_ring_mm.py:149",
-     "curl_tpu_torch/csrc/ring_mm.cu"),
-    ("ring_mm_acc", "ring_mm", lambda sig: len(sig) == 2, "curl_tpu/ops/pallas_ring_mm.py:324",
-     "curl_tpu_torch/csrc/ring_mm.cu"),
-    ("philox", "philox", None, "curl_tpu/ops/pallas_przs.py:218 (_build2d; 1-D: :60 _build)",
-     "curl_tpu_torch/csrc/philox.cu"),
-    ("fused_mul", "fused_mul", None, "curl_tpu/ops/pallas_mul.py:177",
-     "curl_tpu_torch/csrc/fused_mul.cu"),
-    ("ltz", "ltz", None, "curl_tpu/ops/pallas_max_step.py:346", "curl_tpu_torch/csrc/max_step.cu"),
-    ("max_step", "max_step", None, "curl_tpu/ops/pallas_max_step.py:223",
-     "curl_tpu_torch/csrc/max_step.cu"),
-    ("seed_expand", "seed_expand", None, "curl_tpu/ops/pallas_rng.py:43",
-     "curl_tpu_torch/csrc/seed_expand.cu"),
+    ("ring_mm", ("ring_mm",), lambda sig: len(sig) == 1, "curl_tpu/ops/pallas_ring_mm.py:149",
+     "curl_tpu_torch/csrc/ring_mm.cu", None),
+    ("ring_mm_acc", ("ring_mm",), lambda sig: len(sig) == 2,
+     "curl_tpu/ops/pallas_ring_mm.py:324", "curl_tpu_torch/csrc/ring_mm.cu", None),
+    ("philox", ("philox",), None, "curl_tpu/ops/pallas_przs.py:218 (_build2d; 1-D: :60 _build)",
+     "curl_tpu_torch/csrc/philox.cu", None),
+    ("fused_mul", ("fused_mul", "square_chain"), None, "curl_tpu/ops/pallas_mul.py:177",
+     "curl_tpu_torch/csrc/fused_mul.cu", None),
+    ("ltz", ("ltz",), None, "curl_tpu/ops/pallas_max_step.py:346",
+     "curl_tpu_torch/csrc/max_step.cu", None),
+    ("max_step", ("max_step", "fold", "butterfly"), None, "curl_tpu/ops/pallas_max_step.py:223",
+     "curl_tpu_torch/csrc/max_step.cu", None),
+    ("seed_expand", ("seed_expand",), None, "curl_tpu/ops/pallas_rng.py:43",
+     "curl_tpu_torch/csrc/seed_expand.cu", None),
+    ("fused_mul square chain", ("square_chain",), None,
+     "curl_tpu/ops/pallas_mul.py:177 (exp's squarings, curl_tpu/functions/approximations.py:96)",
+     "curl_tpu_torch/csrc/fused_mul.cu", "fused_mul"),
+    ("max_step fold", ("fold",), None,
+     "curl_tpu/ops/pallas_max_step.py:223 (scan_reduction's fold, curl_tpu/functions/maximum.py:324)",
+     "curl_tpu_torch/csrc/max_step.cu", "max_step"),
+    ("max_step butterfly", ("butterfly",), None,
+     "curl_tpu/ops/pallas_max_step.py:223 (scan_reduction's butterfly, "
+     "curl_tpu/functions/maximum.py:373)", "curl_tpu_torch/csrc/max_step.cu", "max_step"),
 )
+# the kernels read_launches counts, and the kinds recording_launches records
+PATH_FAMILIES = tuple(name for name, *_, part_of in PATH_KERNELS if part_of is None)
+KINDS = ("ring_mm", "philox") + FUSED_KINDS + ("seed_expand",)
+# the launch-count tags of the chain entries (read_launches' by_op)
+CHAIN_TAGS = {"fused_mul square chain": lambda tag: tag.endswith("+chain"),
+              "max_step fold": lambda tag: tag == "fold",
+              "max_step butterfly": lambda tag: tag in ("butterfly", "butterfly_unpaired")}
 # this slice's main path, whose launches and milliseconds the JSON line's
 # top-level numbers are
 MAIN_PATH = "compressed"
@@ -1524,8 +1665,7 @@ def time_seed(sig, dev, gen):
 
 def time_signatures(paths, dev, gen):
     """Every launch signature any path recorded, once: {kind: {sig: row}}."""
-    union = {kind: {} for kind in ("ring_mm", "philox", "fused_mul", "ltz", "max_step",
-                                   "seed_expand")}
+    union = {kind: {} for kind in KINDS}
     for calls in paths.values():
         for kind, sigs in calls.items():
             for sig in sigs:
@@ -1571,13 +1711,16 @@ def path_totals(path, calls, rows, top=8):
     """Each kernel's launches, time, plain time and bound summed over one
     path's recorded launches; its largest signatures logged."""
     out = {}
-    for name, kind, keep, _, _ in PATH_KERNELS:
-        mine = [(sig, n, rows[kind][sig]) for sig, n in calls[kind].items()
-                if keep is None or keep(sig)]
+    for name, kinds, keep, _, _, part_of in PATH_KERNELS:
+        mine = [(sig, n, rows[kind][sig], kind) for kind in kinds
+                for sig, n in calls[kind].items() if keep is None or keep(sig)]
         if not mine:
             continue
-        tot = {k: sum(r[k] * n for _, n, r in mine) for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
-        for sig, n, r in sorted(mine, key=lambda m: -m[2]["ms"] * m[1])[:top]:
+        tot = {k: sum(r[k] * n for _, n, r, _ in mine)
+               for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
+        for sig, n, r, kind in sorted(mine, key=lambda m: -m[2]["ms"] * m[1])[:top]:
+            if part_of is not None:  # logged with the kernel it is a part of
+                break
             dense = f"; contiguous {r['dense_ms']:.4f} ms" if "dense_ms" in r else ""
             dense += f"; {r['split']}" if "split" in r else ""
             log(f"[path] {path} {name} x{n}: {r['ms']:.4f} ms each, {r['ms'] * n:.3f} ms a forward "
@@ -1587,20 +1730,41 @@ def path_totals(path, calls, rows, top=8):
         # the bound is each signature's max(bytes, operations), summed;
         # "bound_by" names the side that bounds the larger part of it
         by_side = {"bytes": 0.0, "operations": 0.0}
-        for _, n, r in mine:
+        for _, n, r, _ in mine:
             side = "bytes" if r["t_bytes"] >= r["t_ops"] else "operations"
             by_side[side] += n * max(r["t_bytes"], r["t_ops"])
         b = sum(by_side.values())
         by = max(by_side, key=by_side.get)
-        launches = sum(n for _, n, _ in mine)
+        launches = sum(n for _, n, _, _ in mine)
         log(f"[path] {path} {name}: one forward's {launches} launches over {len(mine)} "
             f"signatures: {tot['ms']:.3f} ms (bound {b:.4f} ms, {by_side['bytes']:.4f} by bytes + "
-            f"{by_side['operations']:.4f} by operations; plain {tot['plain_ms']:.1f} ms)")
-        if kind == "philox":
-            philox_size_classes(path, mine)
+            f"{by_side['operations']:.4f} by operations, {tot['ms'] / b:.2f}x; plain "
+            f"{tot['plain_ms']:.1f} ms)")
+        if name == "philox":
+            philox_size_classes(path, [m[:3] for m in mine])
+        if name in ("fused_mul", "ltz", "max_step"):
+            for sig, n, r, kind in sorted(mine, key=lambda m: -m[2]["ms"] / max(m[2]["t_bytes"],
+                                                                                m[2]["t_ops"])):
+                if fused_elements(kind, sig) > FUSED_LARGE:
+                    log(f"[path] {path} {name} above {FUSED_LARGE} elements x{n}: "
+                        f"{r['ms'] / max(r['t_bytes'], r['t_ops']):.2f}x its bound, "
+                        f"{r['ms']:.4f} ms against {max(r['t_bytes'], r['t_ops']):.5f}; "
+                        f"{_describe(kind, sig)}")
         out[name] = dict(launches=launches, signatures=len(mine), ms=tot["ms"],
                          plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by)
     return out
+
+
+# fused protocol launches whose multiple of the bound is logged one by one
+FUSED_LARGE = 1_000_000
+
+
+def fused_elements(kind, sig):
+    """Output elements of one fused protocol launch."""
+    spec = fused_spec(kind, sig)
+    shape = spec["operands"][0][0]
+    n = math.prod(shape[1:])
+    return n // shape[-2] if kind == "fold" else n
 
 
 # philox launches by the elements of the launch: at most 1k, at most 256k,
@@ -1654,10 +1818,11 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    spills = [line for line in build.build_logs.get("philox", "").splitlines()
-              if re.search(r"[1-9]\d* bytes spill", line)]
-    if spills:
-        raise AssertionError(f"ptxas spills in csrc/philox.cu: {spills}")
+    for name in ("philox", "fused_mul", "max_step"):
+        spills = [line for line in build.build_logs.get(name, "").splitlines()
+                  if re.search(r"[1-9]\d* bytes spill", line)]
+        if spills:
+            raise AssertionError(f"ptxas spills in csrc/{name}.cu: {spills}")
     global PHILOX_OPS
     PHILOX_OPS, mix = philox_sass_ops()
     log(f"[build] philox: one Philox4x32-10 call is {PHILOX_OPS:g} SASS instructions with its "
@@ -1693,43 +1858,55 @@ def run_paths(dev, gen):
     # each path: the signatures its warm-up forward recorded, and the launch
     # counts of one forward, reset just before it and read just after
     forward, failures = run_forward(dev)
-    paths = {"forward": (forward.pop("calls"), forward.pop("launches"))}
-    launches, calls, bench_failures, bench_stats = run_bench_forward(forward)
+    paths = {"forward": (forward.pop("calls"), forward.pop("launches"), forward.pop("by_op"))}
+    launches, by_op, calls, bench_failures, bench_stats = run_bench_forward(forward)
     failures += bench_failures
-    paths["bench"] = (calls, launches)
+    paths["bench"] = (calls, launches, by_op)
     compressed, comp_failures = run_compressed(forward, bench_stats)
     failures += comp_failures
-    paths["compressed"] = (compressed["calls"], compressed["launches"])
+    paths["compressed"] = (compressed["calls"], compressed["launches"], compressed["by_op"])
     del forward, compressed
     torch.cuda.empty_cache()
     neo, neo_failures = run_neo(dev)
     failures += neo_failures
-    paths["neo"] = (neo["calls"], neo["launches"])
+    paths["neo"] = (neo["calls"], neo["launches"], neo["by_op"])
     del neo
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
-    rows = time_signatures({p: c for p, (c, _) in paths.items()}, dev, gen)
-    totals = {p: path_totals(p, c, rows) for p, (c, _) in paths.items()}
+    rows = time_signatures({p: c for p, (c, _, _) in paths.items()}, dev, gen)
+    totals = {p: path_totals(p, c, rows) for p, (c, _, _) in paths.items()}
     for p, t in totals.items():
         log(f"[path] {p} ring_mm and ring_mm_acc against their bounds: " + ", ".join(
             f"{name} {t[name]['ms']:.3f} ms = {t[name]['ms'] / t[name]['bound_ms']:.2f}x "
             f"{t[name]['bound_ms']:.4f} ms" for name in ("ring_mm", "ring_mm_acc") if name in t))
+        _, launches, by_op = paths[p]
+        log(f"[path] {p} fused_mul launches {launches['fused_mul']}: " + ", ".join(
+            f"{tag} {n}" for tag, n in sorted(by_op.items()) if "+" in tag)
+            + f"; max_step launches {launches['max_step']}: " + ", ".join(
+            f"{tag} {by_op.get(tag, 0)}" for tag in MAX_STEP_TAGS))
+
+    def counted(p, name):
+        """The launches one forward of path p counted for a JSON entry."""
+        _, launches, by_op = paths[p]
+        if name in CHAIN_TAGS:
+            return sum(n for tag, n in by_op.items() if CHAIN_TAGS[name](tag))
+        return launches[name]
+
     kernels = []
-    for name, _, _, replaces, source in PATH_KERNELS:
+    for name, _, _, replaces, source, part_of in PATH_KERNELS:
         main = totals[MAIN_PATH].get(name)
         if main is None:  # the main path's check has failed already
             continue
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=paths[MAIN_PATH][1][name], max_abs_err=0, ms=main["ms"],
+            launches=counted(MAIN_PATH, name), max_abs_err=0, ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=None,
+            library_ms=None, part_of=part_of,
             shape=f"one phase 4c forward: every launch, {main['signatures']} signatures",
-            paths={p: dict(t[name], launches=paths[p][1][name])
+            paths={p: dict(t[name], launches=counted(p, name))
                    for p, t in totals.items() if name in t}))
     return kernels, failures
-
 
 if __name__ == "__main__":
     main()

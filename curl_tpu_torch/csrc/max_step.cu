@@ -1,51 +1,66 @@
-// Fused 2-party comparison (ltz) and max-tournament step for Hopper (sm_90a).
+// Fused 2-party comparison (ltz) and max-tournament steps for Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // curl_tpu/ops/pallas_max_step.py: `_ltz_kernel_call` (:346; math
 // `ltz_bit_math` :158; entry fused_ltz_mpc :453) and `_kernel_call` (:223;
-// math `max_step_math` :167; entry fused_max_step_mpc :305). Two entry
-// points share the device code of the packed 32-bit sign circuit:
+// math `max_step_math` :167; entry fused_max_step_mpc :305), and the
+// `lax.scan` bodies of curl_tpu/functions/maximum.py that call the latter
+// once a step (:324-343, :373-380). One kernel template, three modes:
 //
-//   ltz       d -> arithmetic 0/1 shares of d < 0: A2B re-share, one Beaver
-//             AND level and five prefix levels of the packed SPK adder, then
-//             the multiplication-free B2A of the sign bit
-//   max_step  carry, rolled -> rolled + (carry >= rolled) * (carry - rolled):
-//             the sign circuit on d = carry - rolled, B2A of NOT ltz, and the
-//             Beaver select
+//   ltz        d -> arithmetic 0/1 shares of d < 0: A2B re-share, one Beaver
+//              AND level and five prefix levels of the packed SPK adder, then
+//              the multiplication-free B2A of the sign bit
+//   step/fold  carry, rolled -> rolled + (carry >= rolled) * (carry - rolled):
+//              the sign circuit on d = carry - rolled, B2A of NOT ltz, and the
+//              Beaver select; `steps` such steps, step g reading the chunk at
+//              b + g * b_step with draw count count + g and the carry kept in
+//              registers (one step: b_step = 0; scan_reduction's chunk fold:
+//              the G - 1 chunks of a (..., G, W) tensor read in place)
+//   butterfly  `steps` steps of x -> step(x, roll(x, -(w >> (g + 1)))) over
+//              the last dim (w wide): a block holds whole rows in shared
+//              memory, rolls there, and writes only the last step's x
 //
-// One thread owns one packed word for both simulated parties: of n
-// elements, element k in the low 32-bit lane and element k + m in the high
-// lane (m = ceil(n / 2); a missing k + m reads a zero share and is not
-// written). The whole protocol stays in registers; only the result shares
-// are written. Operands are read in place through their strides (a
-// broadcast `rolled` has stride 0).
+// Packing: of n elements, element k (low 32-bit lane) and element k + m
+// (high lane) share word k, m = ceil(n / 2) over the whole tensor; a
+// missing k + m reads a zero share and is not written. A butterfly block
+// therefore owns rows rho and rho + R / 2 of the R rows together, which
+// needs R even and w even (kernels/max_step.py runs the step kernel once a
+// step otherwise).
 //
 // Randomness: draw `s` (its slot in the protocol's call order, as the plain
-// version kernels/max_step.py numbers them) for word k is
-// philox_slot(key, count, s, k) (csrc/philox.cuh); an rbit() slot
-// gives bit h of that draw to half h. Nothing depends on the launch
+// version kernels/max_step.py numbers them) for word k is word k & 1 of
+// philox_slot_pair(key, count, s, k >> 1) (csrc/philox.cuh); an rbit()
+// slot gives bit h of that draw to half h. Nothing depends on the launch
 // geometry, so kernel and plain version agree bit for bit.
 //
-// What bounds it on an H100: a max_step word (two elements) reads 8 shares
-// and writes 4 (96 bytes: 0.029 ns at 3.35 TB/s) but needs 71 draws, 35.5
-// Philox4x32-10 calls (one call gives two draws), 22 Beaver ANDs and 10
-// 64-bit products: about 3,500 32-bit integer operations (0.052 ns at the
-// 67 T/s 32-bit rate), so the integer operations bound it (ltz: 61 draws,
-// about 3,000 operations). The design draws every protocol random word in
-// the thread that uses it, once, and keeps all ~60 intermediate planes of
-// the TPU kernel out of memory. It makes one Philox call per draw, twice the
-// calls needed, so that the plain version can use kernels/philox.py's
-// streams as they are; at the vocab softmax's 3,216,448 elements both entry
-// points run at 3.5-3.6x the operations bound (chip_smoke phase 3b;
-// PERF.md).
+// What bounds it on an H100: a step word (two elements) reads 8 shares and
+// writes 4 (96 bytes: 0.029 ns at 3.35 TB/s) but needs 71 draws, 35.5
+// Philox4x32-10 calls, and 10 64-bit products: about 1,450 32-bit integer
+// instructions (0.087 ns at the 16.7 T/s integer rate), so the integer
+// operations bound it (ltz: 61 draws). The Philox calls are 95% of them.
+// The design: a word's draws do not depend on its shares, so a block first
+// makes the draws of 64 words into shared memory, one call for each (slot,
+// word pair) spread over all 128 threads (half the calls a thread-per-word
+// design makes, which keeps one word of each call), then 64 threads run
+// the words' circuits reading them from there (568 B a word: 36 KB, 31 KB
+// for ltz). At the attention's 24,576 words that is 384 blocks of 4 warps,
+// all 132 SMs busy with up to 4 blocks each (128 and 256 threads a block
+// and 2 to 4 blocks an SM were timed at the path's sizes: this was the
+// fastest at all but the vocab's 64 x 128 tail). A chain of steps keeps
+// its carry in registers (fold) or its rows in shared memory (butterfly),
+// so the steps of one scan stage are one launch and the intermediate
+// carries never reach device memory.
 
 #include "philox.cuh"
 
 namespace {
 
 constexpr int kMaxDims = 6;
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kChunk = 64;  // words whose draws one draw stage makes
 constexpr int kLevels = 5;
+constexpr int kSlotsLtz = 61, kSlotsStep = 71;
+constexpr int kMaxButterflyWidth = 1024;
 
 typedef unsigned long long u64;
 
@@ -70,24 +85,42 @@ struct Operand {
 };
 
 struct StepArgs {
-  Operand a, b;             // ltz: a = d; max_step: a = carry, b = rolled
+  Operand a, b;             // ltz: a = d; step/fold: a = carry, b = the first rolled
   long long size[kMaxDims];
-  int nd;
-  long long n;
+  int nd, steps;
+  long long n, b_step;      // b_step: elements between the chunks of a fold
   u64 key, count;
 };
 
 namespace {
 
-struct Rand {
-  u64 key, count;
-  u64 k;     // word index
-  int slot;  // next draw's slot
+enum Mode { kLtz = 0, kFold = 1, kButterfly = 2 };
 
-  __device__ __forceinline__ u64 bits() {
-    return philox_slot(key, count, slot++, k);
-  }
+// The draws of one word, slot by slot, from the block's draw stage.
+struct Draws {
+  const u64* p;  // the word's column of the [slot][kChunk] table
+  int slot;
+
+  __device__ __forceinline__ u64 bits() { return p[(slot++) * kChunk]; }
 };
+
+// Slots 0..S-1 of the kChunk words from word k0 (even) into sd[slot][word]:
+// one Philox call per (slot, word pair), two calls in flight a thread.
+template <int S>
+__device__ __forceinline__ void draw_stage(u64* sd, u64 key, u64 count, long long k0) {
+  constexpr int kPairs = kChunk / 2;
+  constexpr int kItems = S * kPairs;
+  const u64 j0 = static_cast<u64>(k0) >> 1;
+  for (int i = threadIdx.x; i < kItems; i += 2 * kThreads) {
+    const int i2 = min(i + kThreads, kItems - 1);
+    const uint4 o1 = philox_slot_pair(key, count, i / kPairs, j0 + i % kPairs);
+    const uint4 o2 = philox_slot_pair(key, count, i2 / kPairs, j0 + i2 % kPairs);
+    reinterpret_cast<ulonglong2*>(sd)[i] = make_ulonglong2(philox_word(o1, false),
+                                                           philox_word(o1, true));
+    reinterpret_cast<ulonglong2*>(sd)[i2] = make_ulonglong2(philox_word(o2, false),
+                                                            philox_word(o2, true));
+  }
+}
 
 __device__ __forceinline__ long long offset(const StepArgs& a, const long long* mem, long long e) {
   unsigned rem = static_cast<unsigned>(e);
@@ -104,7 +137,7 @@ __device__ __forceinline__ long long offset(const StepArgs& a, const long long* 
 }
 
 // One Beaver AND on XOR shares: z0 ^ z1 = (u0 ^ u1) & (v0 ^ v1).
-__device__ __forceinline__ void beaver_and(u64 u0, u64 u1, u64 v0, u64 v1, Rand& R, u64& z0,
+__device__ __forceinline__ void beaver_and(u64 u0, u64 u1, u64 v0, u64 v1, Draws& R, u64& z0,
                                            u64& z1) {
   const u64 a0 = R.bits(), a1 = R.bits(), b0 = R.bits(), b1 = R.bits(), c0 = R.bits();
   const u64 c1 = ((a0 ^ a1) & (b0 ^ b1)) ^ c0;
@@ -118,7 +151,7 @@ __device__ __forceinline__ u64 mul_pow2m2(u64 x, int k) { return (x << k) - (x <
 
 // XOR shares of the packed words' sum bits from each party's packed word;
 // bit 31 (63) of sum_p is party p's share of the sign of element k (k + m).
-__device__ __forceinline__ void sign_bits(u64 w0p, u64 w1p, Rand& R, u64& sum0, u64& sum1) {
+__device__ __forceinline__ void sign_bits(u64 w0p, u64 w1p, Draws& R, u64& sum0, u64& sum1) {
   const u64 x0 = R.bits();
   const u64 x1 = x0 ^ w0p;
   const u64 y1 = R.bits();
@@ -147,7 +180,7 @@ __device__ __forceinline__ void sign_bits(u64 w0p, u64 w1p, Rand& R, u64& sum0, 
 }
 
 // B2A of the XOR-shared bits (bit0[h], bit1[h]) of the two halves.
-__device__ __forceinline__ void b2a(const u64 bit0[2], const u64 bit1[2], Rand& R, u64 a0[2],
+__device__ __forceinline__ void b2a(const u64 bit0[2], const u64 bit1[2], Draws& R, u64 a0[2],
                                     u64 a1[2]) {
   const u64 wrb = R.bits();
   const u64 wrb0 = R.bits();
@@ -165,97 +198,224 @@ __device__ __forceinline__ void b2a(const u64 bit0[2], const u64 bit1[2], Rand& 
   }
 }
 
+// One word's protocol: ltz of c (STEP false), or the tournament step of
+// carry c against rolled r (STEP true); both halves, both parties.
 template <bool STEP>
-__global__ void __launch_bounds__(kThreads) step_kernel(StepArgs a, u64* __restrict__ out) {
-  const long long m = (a.n + 1) >> 1;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; k < m;
-       k += stride) {
-    const long long e[2] = {k, k + m};
-    const bool has1 = k + m < a.n;
-    // d (ltz) or carry and rolled (step), both halves, both parties
-    u64 c0[2], c1[2], r0[2] = {0, 0}, r1[2] = {0, 0};
+__device__ __forceinline__ void word_circuit(const u64 c0[2], const u64 c1[2], const u64 r0[2],
+                                             const u64 r1[2], Draws R, u64 z0[2], u64 z1[2]) {
+  u64 d0[2], d1[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    d0[h] = c0[h] - r0[h];
+    d1[h] = c1[h] - r1[h];
+  }
+  u64 sum0, sum1;
+  sign_bits((d0[0] & 0xFFFFFFFFull) | (d0[1] << 32), (d1[0] & 0xFFFFFFFFull) | (d1[1] << 32), R,
+            sum0, sum1);
+  u64 bit0[2] = {(sum0 >> 31) & 1ull, sum0 >> 63};
+  const u64 bit1[2] = {(sum1 >> 31) & 1ull, sum1 >> 63};
+  if (STEP) {  // ge = NOT ltz, flipped on party 0's share
+    bit0[0] ^= 1ull;
+    bit0[1] ^= 1ull;
+  }
+  u64 g0[2], g1[2];
+  b2a(bit0, bit1, R, g0, g1);
+  if (STEP) {  // Beaver select: rolled + ge * d
+    u64 a20[2], a21[2], b20[2], b21[2], c20[2];
+    a20[0] = R.bits(); a20[1] = R.bits();
+    a21[0] = R.bits(); a21[1] = R.bits();
+    b20[0] = R.bits(); b20[1] = R.bits();
+    b21[0] = R.bits(); b21[1] = R.bits();
+    c20[0] = R.bits(); c20[1] = R.bits();
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      c0[h] = c1[h] = 0;
-      if (h == 0 || has1) {
-        const long long oa = offset(a, a.a.mem, e[h]);
-        c0[h] = a.a.ptr[oa];
-        c1[h] = a.a.ptr[a.a.party + oa];
-        if (STEP) {
-          const long long ob = offset(a, a.b.mem, e[h]);
-          r0[h] = a.b.ptr[ob];
-          r1[h] = a.b.ptr[a.b.party + ob];
+      const u64 c21 = (a20[h] + a21[h]) * (b20[h] + b21[h]) - c20[h];
+      const u64 eps = (g0[h] - a20[h]) + (g1[h] - a21[h]);
+      const u64 delta = (d0[h] - b20[h]) + (d1[h] - b21[h]);
+      z0[h] = r0[h] + (c20[h] + eps * b20[h] + delta * g0[h]);
+      z1[h] = r1[h] + (c21 + eps * b21[h] + delta * g1[h]);
+    }
+  } else {
+    z0[0] = g0[0]; z0[1] = g0[1];
+    z1[0] = g1[0]; z1[1] = g1[1];
+  }
+}
+
+// ltz and step/fold: a block owns the kChunk words from blockIdx.x * kChunk.
+template <int MODE>
+__device__ __forceinline__ void words_body(const StepArgs& a, u64* __restrict__ out, u64* sd) {
+  constexpr bool STEP = MODE != kLtz;
+  constexpr int S = STEP ? kSlotsStep : kSlotsLtz;
+  const long long m = (a.n + 1) >> 1;
+  const long long k0 = static_cast<long long>(blockIdx.x) * kChunk;
+  const long long k = k0 + threadIdx.x;
+  const bool live = threadIdx.x < kChunk && k < m;
+  const long long e[2] = {k, k + m};
+  const bool has1 = live && k + m < a.n;
+  u64 c0[2] = {0, 0}, c1[2] = {0, 0}, r0[2] = {0, 0}, r1[2] = {0, 0};
+  long long ob[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h == 0 ? live : has1) {
+      const long long oa = offset(a, a.a.mem, e[h]);
+      c0[h] = a.a.ptr[oa];
+      c1[h] = a.a.ptr[a.a.party + oa];
+      if (STEP) ob[h] = offset(a, a.b.mem, e[h]);
+    }
+  }
+  for (int g = 0; g < a.steps; ++g) {
+    if (STEP) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 0 ? live : has1) {
+          const long long o = ob[h] + g * a.b_step;
+          r0[h] = a.b.ptr[o];
+          r1[h] = a.b.ptr[a.b.party + o];
         }
       }
     }
-    u64 d0[2], d1[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      d0[h] = c0[h] - r0[h];
-      d1[h] = c1[h] - r1[h];
-    }
-    Rand R{a.key, a.count, static_cast<u64>(k), 0};
-    u64 sum0, sum1;
-    sign_bits((d0[0] & 0xFFFFFFFFull) | (d0[1] << 32), (d1[0] & 0xFFFFFFFFull) | (d1[1] << 32),
-              R, sum0, sum1);
-    u64 bit0[2] = {(sum0 >> 31) & 1ull, sum0 >> 63};
-    const u64 bit1[2] = {(sum1 >> 31) & 1ull, sum1 >> 63};
-    if (STEP) {  // ge = NOT ltz, flipped on party 0's share
-      bit0[0] ^= 1ull;
-      bit0[1] ^= 1ull;
-    }
-    u64 g0[2], g1[2];
-    b2a(bit0, bit1, R, g0, g1);
-    u64 z0[2], z1[2];
-    if (STEP) {  // Beaver select: rolled + ge * d
-      u64 a20[2], a21[2], b20[2], b21[2], c20[2];
-      a20[0] = R.bits(); a20[1] = R.bits();
-      a21[0] = R.bits(); a21[1] = R.bits();
-      b20[0] = R.bits(); b20[1] = R.bits();
-      b21[0] = R.bits(); b21[1] = R.bits();
-      c20[0] = R.bits(); c20[1] = R.bits();
+    if (g > 0) __syncthreads();  // the previous step's circuits have read the table
+    draw_stage<S>(sd, a.key, a.count + g, k0);
+    __syncthreads();
+    if (live) {
+      u64 z0[2], z1[2];
+      word_circuit<STEP>(c0, c1, r0, r1, Draws{sd + threadIdx.x, 0}, z0, z1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const u64 c21 = (a20[h] + a21[h]) * (b20[h] + b21[h]) - c20[h];
-        const u64 eps = (g0[h] - a20[h]) + (g1[h] - a21[h]);
-        const u64 delta = (d0[h] - b20[h]) + (d1[h] - b21[h]);
-        z0[h] = r0[h] + (c20[h] + eps * b20[h] + delta * g0[h]);
-        z1[h] = r1[h] + (c21 + eps * b21[h] + delta * g1[h]);
+        c0[h] = z0[h];
+        c1[h] = z1[h];
       }
-    } else {
-      z0[0] = g0[0]; z0[1] = g0[1];
-      z1[0] = g1[0]; z1[1] = g1[1];
     }
-    out[e[0]] = z0[0];
-    out[a.n + e[0]] = z1[0];
+  }
+  if (live) {
+    out[e[0]] = c0[0];
+    out[a.n + e[0]] = c1[0];
     if (has1) {
-      out[e[1]] = z0[1];
-      out[a.n + e[1]] = z1[1];
+      out[e[1]] = c0[1];
+      out[a.n + e[1]] = c1[1];
     }
   }
 }
 
-template <bool STEP>
+// butterfly: a block owns rows [rho0, rho0 + P) and the same rows + R / 2,
+// whole, in xs[buffer][party][half][word]; the kChunk words of a draw
+// stage at a time.
+__device__ __forceinline__ void butterfly_body(const StepArgs& a, u64* __restrict__ out, u64* sd,
+                                               u64* xs) {
+  const int w = static_cast<int>(a.size[a.nd - 1]);
+  const long long half = a.n / w / 2;  // R / 2 rows
+  const long long m = half * w;
+  const int P = w >= kChunk ? 1 : kChunk / w;
+  const long long rho0 = static_cast<long long>(blockIdx.x) * P;
+  const int words = static_cast<int>(min(static_cast<long long>(P), half - rho0)) * w;
+  const int W = P * w;
+  const long long k0 = rho0 * w;
+  auto at = [&](int buf, int party, int h, int q) -> u64& {
+    return xs[((buf * 2 + party) * 2 + h) * W + q];
+  };
+  for (int q = threadIdx.x; q < words; q += kThreads) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long o = offset(a, a.a.mem, k0 + q + h * m);
+      at(0, 0, h, q) = a.a.ptr[o];
+      at(0, 1, h, q) = a.a.ptr[a.a.party + o];
+    }
+  }
+  int buf = 0;
+  for (int g = 0; g < a.steps; ++g) {
+    const int shift = w >> (g + 1);
+    for (int q0 = 0; q0 < words; q0 += kChunk) {
+      // the previous chunk's circuits have read the table, and the loads
+      // (g = 0) or the previous step's writes are in
+      __syncthreads();
+      draw_stage<kSlotsStep>(sd, a.key, a.count + g, k0 + q0);
+      __syncthreads();
+      const int q = q0 + static_cast<int>(threadIdx.x);
+      if (threadIdx.x < kChunk && q < words) {
+        const int row = q / w, col = q - row * w;
+        const int qr = row * w + (col + shift) % w;
+        u64 c0[2], c1[2], r0[2], r1[2], z0[2], z1[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          c0[h] = at(buf, 0, h, q);
+          c1[h] = at(buf, 1, h, q);
+          r0[h] = at(buf, 0, h, qr);
+          r1[h] = at(buf, 1, h, qr);
+        }
+        word_circuit<true>(c0, c1, r0, r1, Draws{sd + threadIdx.x, 0}, z0, z1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          at(buf ^ 1, 0, h, q) = z0[h];
+          at(buf ^ 1, 1, h, q) = z1[h];
+        }
+      }
+    }
+    buf ^= 1;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < words; q += kThreads) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long e = k0 + q + h * m;
+      out[e] = at(buf, 0, h, q);
+      out[a.n + e] = at(buf, 1, h, q);
+    }
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads, 4) step_kernel(StepArgs a, u64* __restrict__ out) {
+  extern __shared__ __align__(16) u64 smem[];
+  if (MODE == kButterfly) {
+    butterfly_body(a, out, smem, smem + kSlotsStep * kChunk);
+  } else {
+    words_body<MODE>(a, out, smem);
+  }
+}
+
+template <int MODE>
 int launch(const StepArgs* args, long long* out, void* stream) {
   const StepArgs& a = *args;
-  if (a.nd < 0 || a.nd > kMaxDims || a.n < 0 || a.n > 0x7FFFFFFFll) return cudaErrorInvalidValue;
+  if (a.nd < (MODE == kButterfly ? 1 : 0) || a.nd > kMaxDims || a.n < 0 || a.n > 0x7FFFFFFFll || a.steps < 1 ||
+      (MODE == kLtz && a.steps != 1))
+    return cudaErrorInvalidValue;
   if (a.n == 0) return static_cast<int>(cudaGetLastError());
-  const long long words = (a.n + 1) >> 1;
-  long long blocks = (words + kThreads - 1) / kThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  step_kernel<STEP><<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, reinterpret_cast<u64*>(out));
+  long long blocks;
+  size_t smem = static_cast<size_t>(MODE == kLtz ? kSlotsLtz : kSlotsStep) * kChunk * 8;
+  if (MODE == kButterfly) {
+    const long long w = a.size[a.nd - 1];
+    const long long rows = a.n / w;
+    if (w < 2 || (w & 1) || w > kMaxButterflyWidth || (rows & 1)) return cudaErrorInvalidValue;
+    const long long P = w >= kChunk ? 1 : kChunk / w;
+    blocks = (rows / 2 + P - 1) / P;
+    smem += static_cast<size_t>(P * w) * 8 * 8;  // two buffers x two parties x two halves
+    static size_t allowed = 48 * 1024;
+    if (smem > allowed) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          step_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+      allowed = smem;
+    }
+  } else {
+    blocks = ((a.n + 1) / 2 + kChunk - 1) / kChunk;
+  }
+  step_kernel<MODE><<<static_cast<unsigned>(blocks), kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(a, reinterpret_cast<u64*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// out: the contiguous (2, n) result. Return cudaGetLastError().
+// out: the contiguous (2, n) result (for a fold: n = the carry's
+// elements). Return cudaGetLastError().
 extern "C" int ltz_launch(const StepArgs* args, long long* out, void* stream) {
-  return launch<false>(args, out, stream);
+  return launch<kLtz>(args, out, stream);
 }
 
 extern "C" int max_step_launch(const StepArgs* args, long long* out, void* stream) {
-  return launch<true>(args, out, stream);
+  return launch<kFold>(args, out, stream);
+}
+
+extern "C" int butterfly_launch(const StepArgs* args, long long* out, void* stream) {
+  return launch<kButterfly>(args, out, stream);
 }

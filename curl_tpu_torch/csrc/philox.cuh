@@ -3,11 +3,11 @@
 // max_step.cu). The constants are those of PyTorch's PhiloxRNGEngine.h: one
 // round multiplies two counter words, then the key is bumped; ten rounds.
 //
-// philox_elem(key, ctr_hi, i) is element i of the 64-bit stream of
-// kernels/philox.py's `stream(key, counter, n)`, where ctr_hi is the 64-bit
-// counter: the Philox counter is (j_lo, j_hi, counter_lo, counter_hi) with
-// j = i / 2, and elements 2j and 2j + 1 are its words (x | y << 32) and
-// (z | w << 32). Every value is a pure function of (key, counter, i).
+// Element i of the 64-bit stream of kernels/philox.py's `stream(key,
+// counter, n)` comes from the Philox call at counter (j_lo, j_hi,
+// counter_lo, counter_hi) with j = i / 2: elements 2j and 2j + 1 are its
+// words (x | y << 32) and (z | w << 32). Every value is a pure function of
+// (key, counter, i).
 
 #pragma once
 
@@ -29,22 +29,21 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-__device__ __forceinline__ unsigned long long philox_elem(unsigned long long key,
-                                                          unsigned long long counter,
-                                                          unsigned long long i) {
-  const unsigned long long j = i >> 1;
-  const uint4 o = philox4x32_10(
+// The Philox call that holds elements 2j and 2j + 1 of draw `slot` of a
+// fused protocol kernel's call with draw count `count` (count < 2^48; the
+// slot sits in the counter's top 16 bits: kernels/philox.py's
+// slot_counter), and the word of element 2j + odd. The fused kernels make
+// one call for a pair of elements and keep both words.
+__device__ __forceinline__ uint4 philox_slot_pair(unsigned long long key, unsigned long long count,
+                                                 int slot, unsigned long long j) {
+  const unsigned long long ctr = count | (static_cast<unsigned long long>(slot) << 48);
+  return philox4x32_10(
       make_uint4(static_cast<unsigned>(j), static_cast<unsigned>(j >> 32),
-                 static_cast<unsigned>(counter), static_cast<unsigned>(counter >> 32)),
+                 static_cast<unsigned>(ctr), static_cast<unsigned>(ctr >> 32)),
       make_uint2(static_cast<unsigned>(key), static_cast<unsigned>(key >> 32)));
-  return (i & 1) ? (o.z | (static_cast<unsigned long long>(o.w) << 32))
-                 : (o.x | (static_cast<unsigned long long>(o.y) << 32));
 }
 
-// Draw `slot` of a fused protocol kernel's call with draw count `count`
-// (count < 2^48) at index i: kernels/philox.py's slot_counter layout.
-__device__ __forceinline__ unsigned long long philox_slot(unsigned long long key,
-                                                          unsigned long long count, int slot,
-                                                          unsigned long long i) {
-  return philox_elem(key, count | (static_cast<unsigned long long>(slot) << 48), i);
+__device__ __forceinline__ unsigned long long philox_word(uint4 o, bool odd) {
+  return odd ? (o.z | (static_cast<unsigned long long>(o.w) << 32))
+             : (o.x | (static_cast<unsigned long long>(o.y) << 32));
 }

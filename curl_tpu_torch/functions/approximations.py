@@ -38,8 +38,14 @@ def exp(self):
     method = cfg.functions.exp_method
     if method != "limit":
         raise _not_ported("exp", method)
+    from ..kernels import fused_mul
+
     iters = cfg.functions.exp_iterations
     result = self.div(2 ** iters) + 1
+    x = result._tensor
+    if iters > 0 and fused_mul.fused_available(x):
+        # the squarings as one fused pass (mpc.fused_mul = "cuda")
+        return result._wrap(fused_mul.fused_square_chain_mpc(x, iters, fused_mul.square_bits(x)))
     for _ in range(iters):
         result = result.square()
     return result

@@ -4,8 +4,9 @@ Ported methods: ``log_reduction`` (pairwise halvings, then the all-pairs max
 of the remainder), ``pairwise`` (all-pairs comparisons with a weighted
 random tie-break) and ``scan_reduction`` (a cascade of chunk folds and a
 butterfly tail, each step one compare and a one-multiply select). With
-``mpc.fused_max_step`` = "cuda" each tournament step of ``scan_reduction``
-is one fused pass (``kernels/max_step.py``).
+``mpc.fused_max_step`` = "cuda" each stage of ``scan_reduction`` (a chunk
+fold's steps, the butterfly's steps) is one fused pass
+(``kernels/max_step.py``).
 """
 
 from __future__ import annotations
@@ -108,8 +109,10 @@ def _max_helper_scan_reduction(enc_tensor, dim):
     stage down to functions.scan_cascade_min, and a butterfly of rolls
     leaves the max in lane 0. The JAX package runs each stage as one
     ``lax.scan`` body and forks the protocol randomness per step
-    (``rng.fork``); here each stage is a Python loop, and every draw of the
-    port comes from a fresh draw count, so no fork is needed.
+    (``rng.fork``); here each stage is a Python loop, or one fused pass of
+    all its steps (``fused_fold_chain_mpc``, ``fused_butterfly_chain_mpc``),
+    and every step's draws come from a fresh draw count, so no fork is
+    needed.
     """
     from ..mpc.mpc import _compare_bits
 
@@ -133,6 +136,10 @@ def _max_helper_scan_reduction(enc_tensor, dim):
         """(..., W_in) -> (..., width_out): a running max over the chunks."""
         groups = x.size(x.dim() - 1) // width_out
         chunked = x.reshape(*(tuple(x.size()[:-1]) + (groups, width_out)))
+        if fused and groups > 1:
+            from ..kernels import max_step
+
+            return max_step.fused_fold_chain_mpc(chunked)
         d = chunked.dim()
         carry = chunked.narrow(d - 2, 0, 1).squeeze(d - 2)
         for g in range(1, groups):
@@ -148,8 +155,13 @@ def _max_helper_scan_reduction(enc_tensor, dim):
         width = width_next
     # butterfly tail: the max lands in lane 0
     k_tail = math.ceil(math.log2(width)) if width > 1 else 0
-    for i in range(k_tail):
-        x = _tournament_select(x, x.roll(-(width >> (i + 1)), dims=x.dim() - 1), fused)
+    if fused and k_tail:
+        from ..kernels import max_step
+
+        x = max_step.fused_butterfly_chain_mpc(x, k_tail)
+    else:
+        for i in range(k_tail):
+            x = _tournament_select(x, x.roll(-(width >> (i + 1)), dims=x.dim() - 1), fused)
     return x.narrow(x.dim() - 1, 0, 1).squeeze(x.dim() - 1)
 
 

@@ -13,7 +13,10 @@ local crypten truncation; or the EGK truncation of existing shares alone.
                ``pallas_mul.fused_op_math`` on the same draws;
   ``launch``   the CUDA kernel ``csrc/fused_mul.cu`` (CUDA tensors only), and
                ``plain``, the same function in torch on Philox draws;
-  ``fused_mul``  ``launch`` on a CUDA tensor, ``plain`` on a CPU tensor;
+  ``launch_square_chain``  a chain of squarings in one launch (exp's), and
+               ``plain_square_chain``, ``plain`` called once a step;
+  ``fused_mul``, ``square_chain``  the kernel on a CUDA tensor, the plain
+               version on a CPU tensor;
   ``fused_*_mpc``  the MPC entry points behind ``mpc.fused_mul`` /
                ``mpc.fused_trunc`` = "cuda".
 
@@ -27,7 +30,9 @@ The index is the element's place in the index space of what is drawn:
 Beaver's ``a`` (and its share mask) ranges over x's elements, ``b`` over
 y's, everything else over the output's. A broadcast operand therefore gets
 one mask per element of its own and is opened at its own size, exactly as
-the composable protocol opens it.
+the composable protocol opens it. Step s of a chain takes draw count
+``count + s`` (``random.reserve_counts``), the count its own call would
+have taken, so a chain's shares equal the per-step calls' bit for bit.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ MIN_ELEMENTS = 1024
 MAX_DIMS = 6
 _MAX_N = (1 << 31) - 1
 
-# launches of the kernel, by "op+trunc"
+# launches of the kernel, by "op+trunc", a chain by "op+trunc+chain"
 launches = {}
 
 
@@ -180,6 +185,12 @@ def _check(op, trunc, m, x, y, count):
     return shape
 
 
+def _check_steps(steps: int, count: int):
+    if steps < 1 or count + steps > MAX_COUNT:
+        raise ValueError("fused_mul: a chain takes at least one step, its draw counts within "
+                         "48 bits")
+
+
 def plain(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
     """The kernel's function in plain torch: (2, *shape) result shares."""
     shape = _check(op, trunc, m, x, y, count)
@@ -205,12 +216,22 @@ def plain(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
     return torch.stack([z0.expand(shape), z1.expand(shape)])
 
 
+def plain_square_chain(trunc, m, x, steps: int, key: int, count: int) -> torch.Tensor:
+    """``steps`` squarings with their rescale, step s at draw count
+    ``count + s``: ``plain`` called ``steps`` times."""
+    _check_steps(steps, count)
+    for s in range(steps):
+        x = plain("square", trunc, m, x, None, key, count + s)
+    return x
+
+
 class _Operand(ctypes.Structure):
     _fields_ = [
         ("ptr", ctypes.c_void_p),
         ("party", ctypes.c_longlong),
         ("mem", ctypes.c_longlong * MAX_DIMS),
         ("logical", ctypes.c_longlong * MAX_DIMS),
+        ("dense", ctypes.c_int),
     ]
 
 
@@ -223,6 +244,7 @@ class _Args(ctypes.Structure):
         ("op", ctypes.c_int),
         ("trunc", ctypes.c_int),
         ("m", ctypes.c_int),
+        ("steps", ctypes.c_int),
         ("n", ctypes.c_longlong),
         ("key", ctypes.c_uint64),
         ("count", ctypes.c_uint64),
@@ -254,20 +276,36 @@ def operand_strides(share: torch.Tensor, shape):
     return mem[::-1], logical[::-1]
 
 
+def _is_dense(share: torch.Tensor, shape) -> bool:
+    """Whether the kernel reads ``share`` at output element i as ``ptr[i]``
+    (and party 1's at ``ptr[party + i]``) with draw index i, each party's
+    share of an element pair one 16-byte load: no broadcast dim, contiguous
+    over the output, a 16-byte aligned start and an even party stride."""
+    mem, logical = operand_strides(share, shape)
+    return (all(m == lg or n == 1 for m, lg, n in zip(mem, logical, shape))
+            and math.prod(shape) == math.prod(share.shape[1:])
+            and share.data_ptr() % 16 == 0 and share.stride(0) % 2 == 0)
+
+
 def _fill(op_struct, share, shape):
     mem, logical = operand_strides(share, shape)
     op_struct.ptr = share.data_ptr()
     op_struct.party = share.stride(0)
+    op_struct.dense = int(_is_dense(share, shape))
     for d in range(len(shape)):
         op_struct.mem[d] = mem[d]
         op_struct.logical[d] = logical[d]
 
 
-def launch(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
+def launch(op, trunc, m, x, y, key: int, count: int, steps: int = 1) -> torch.Tensor:
     """(2, *shape) result shares by the CUDA kernel. ``x``/``y``: (2, ...)
     int64 shares on one CUDA device, read in place whatever their strides;
-    ``y`` is None for square and trunc."""
+    ``y`` is None for square and trunc. ``steps`` > 1: a chain of
+    squarings (``plain_square_chain``), counted as "square+<trunc>+chain"."""
     shape = _check(op, trunc, m, x, y, count)
+    _check_steps(steps, count)
+    if steps > 1 and op != "square":
+        raise ValueError("fused_mul: only a square takes a chain of steps")
     if any(t.device.type != "cuda" or t.device != x.device for t in (x, y) if t is not None):
         raise ValueError("fused_mul: the shares must lie on one CUDA device")
     n = math.prod(shape)
@@ -283,15 +321,21 @@ def launch(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
     for d, s in enumerate(shape):
         args.size[d] = s
     args.nd, args.n = len(shape), n
-    args.op, args.trunc, args.m = OPS.index(op), TRUNCS.index(trunc), m
+    args.op, args.trunc, args.m, args.steps = OPS.index(op), TRUNCS.index(trunc), m, steps
     args.key, args.count = key & ((1 << 64) - 1), count
     with torch.cuda.device(x.device):
         rc = _lib().fused_mul_launch(ctypes.byref(args), out.data_ptr(),
                                      torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "fused_mul")
-    tag = f"{op}+{trunc}"
+    tag = f"{op}+{trunc}" + ("+chain" if steps > 1 else "")
     launches[tag] = launches.get(tag, 0) + 1
     return out
+
+
+def launch_square_chain(trunc, m, x, steps: int, key: int, count: int) -> torch.Tensor:
+    """``plain_square_chain`` by one launch: x read once, each element's
+    ``steps`` squarings in registers, only the last result written."""
+    return launch("square", trunc, m, x, None, key, count, steps)
 
 
 def fused_mul(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
@@ -300,6 +344,14 @@ def fused_mul(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
     if x.device.type != "cuda":
         return plain(op, trunc, m, x, y, key, count)
     return launch(op, trunc, m, x, y, key, count)
+
+
+def square_chain(trunc, m, x, steps: int, key: int, count: int) -> torch.Tensor:
+    """The chain: one launch on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if x.device.type != "cuda":
+        return plain_square_chain(trunc, m, x, steps, key, count)
+    return launch_square_chain(trunc, m, x, steps, key, count)
 
 
 def reset_launches():
@@ -356,6 +408,27 @@ def fused_mul_mpc(x, y, trunc: str, m: int):
 def fused_square_mpc(x, trunc: str, m: int):
     """Private x^2 with its rescale."""
     return _run("square", x, None, trunc, m)
+
+
+def square_bits(x) -> int:
+    """The bits a private square rescales by: the precision of a
+    fixed-point x, none for an integer."""
+    return x.encoder.precision_bits if x.encoder.scale > 1 else 0
+
+
+def fused_square_chain_mpc(x, steps: int, m: int):
+    """``steps`` private squarings, each with the crypten rescale by 2^m, in
+    one pass: the draw counts, rounds and bytes of ``steps`` calls of
+    ``fused_square_mpc(x, "crypten", m)``."""
+    from .. import comm
+    from .. import random as rng
+    from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
+
+    counts = rng.reserve_counts(steps)
+    out = square_chain("crypten", m, x.share, steps, rng.current_keys()["fused"][0], counts[0])
+    for _ in range(steps):
+        comm.register_virtual("all_sum", math.prod(x.shape) * 8, rounds=1)  # eps
+    return ArithmeticSharedTensor(out, x.encoder)
 
 
 def fused_trunc_mpc(x, m: int):

@@ -15,9 +15,15 @@ result shares.
   ``launch_ltz``, ``launch_max_step``  the CUDA kernel ``csrc/max_step.cu``
                (CUDA tensors only); ``plain_ltz`` / ``plain_max_step`` the
                same functions in torch on Philox draws;
-  ``ltz``, ``max_step``  the kernel on a CUDA tensor, the plain version on
-               a CPU tensor;
-  ``fused_ltz_mpc``, ``fused_max_step_mpc``  the MPC entry points behind
+  ``launch_fold_chain``, ``launch_butterfly_chain``  a scan_reduction stage
+               in one launch: the G - 1 steps of a chunk fold, or the
+               butterfly's steps with their rolls; ``plain_fold_chain`` /
+               ``plain_butterfly_chain`` the per-step composition of
+               ``plain_max_step`` they replace;
+  ``ltz``, ``max_step``, ``fold_chain``, ``butterfly_chain``  the kernel on
+               a CUDA tensor, the plain version on a CPU tensor;
+  ``fused_ltz_mpc``, ``fused_max_step_mpc``, ``fused_fold_chain_mpc``,
+               ``fused_butterfly_chain_mpc``  the MPC entry points behind
                ``mpc.fused_compare`` and ``mpc.fused_max_step`` = "cuda".
 
 Packing: of n elements, element k (low 32-bit lane) and element k + m (high
@@ -29,7 +35,10 @@ for word ``k`` is element ``k`` of ``philox.stream(key, count | s << 48)``;
 an ``rbit()`` slot gives bit h of that element to half h. ``key`` is the
 session's ``fused`` stream, ``count`` a fresh draw count per call: the
 kernel and its plain version agree bit for bit whatever the launch
-geometry, and two calls of one forward never share a draw.
+geometry, and two calls of one forward never share a draw. A chain of
+steps takes consecutive draw counts (``random.reserve_counts``), step i
+the count its own call would have taken, so a chain's shares equal the
+per-step composition's bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from .philox import MAX_COUNT, slot_counter, stream
 
 MIN_ELEMENTS = 1024
 MAX_DIMS = 6
+# the widest row the butterfly kernel holds in shared memory (csrc/max_step.cu)
+MAX_BUTTERFLY_WIDTH = 1024
 LEVELS = 5  # prefix levels of the packed 32-bit adder
 # draw slots of one call: A2B 2, AND levels 1 + 2 * LEVELS of 5 each, B2A 4;
 # the step's select 10 more
@@ -52,7 +63,9 @@ DRAWS = {"ltz": 61, "max_step": 71}
 _M32 = 0xFFFFFFFF
 _MAX_N = (1 << 31) - 1
 
-# launches of the kernel, by entry point ("ltz", "max_step")
+# launches of the kernel: by entry point ("ltz", "max_step", the chains
+# "fold" and "butterfly"), and the step launches a butterfly chain makes
+# where its rows do not pair ("butterfly_unpaired")
 launches = {}
 
 
@@ -213,6 +226,14 @@ def _check(count, *shares):
             raise ValueError("max_step takes (2, ...) int64 share tensors of two parties")
 
 
+def _check_chain(count, steps, x):
+    """A chain of ``steps`` >= 1 steps at draw counts count .. count + steps - 1."""
+    _check(count, x)
+    if steps < 1 or x.dim() < 2 or not count + steps <= MAX_COUNT:
+        raise ValueError("max_step: a chain takes at least one step over a (2, ..., w) share, "
+                         "its draw counts within 48 bits")
+
+
 def _unhalve(a0, a1, n: int, shape):
     return torch.stack([a0.reshape(-1)[:n], a1.reshape(-1)[:n]]).reshape((2,) + tuple(shape))
 
@@ -248,6 +269,48 @@ def plain_max_step(carry, rolled, key: int, count: int) -> torch.Tensor:
     return _unhalve(n0, n1, n, shape)
 
 
+def _fold_steps(chunked) -> int:
+    """The steps of a fold over a (2, ..., G, W) share: G - 1."""
+    return chunked.shape[-2] - 1 if chunked.dim() >= 3 else 0
+
+
+def plain_fold_chain(chunked, key: int, count: int) -> torch.Tensor:
+    """(2, ..., G, W) shares -> the (2, ..., W) running max over the G
+    chunks: G - 1 tournament steps, step g (from 1) at draw count
+    ``count + g - 1``, each the plain step."""
+    _check_chain(count, _fold_steps(chunked), chunked)
+    d = chunked.dim()
+    carry = chunked.select(d - 2, 0)
+    for g in range(1, chunked.shape[-2]):
+        carry = plain_max_step(carry, chunked.select(d - 2, g), key, count + g - 1)
+    return carry
+
+
+def butterfly_shift(width: int, step: int) -> int:
+    """The butterfly's roll at ``step``: x against x rolled by -(width >> (step + 1))."""
+    return -(width >> (step + 1))
+
+
+def plain_butterfly_chain(x, steps: int, key: int, count: int) -> torch.Tensor:
+    """``steps`` butterfly steps over the last dim, step i at draw count
+    ``count + i``: x <- step(x, x.roll(butterfly_shift(w, i))), each the
+    plain step."""
+    _check_chain(count, steps, x)
+    for i in range(steps):
+        x = plain_max_step(x, x.roll(butterfly_shift(x.shape[-1], i), dims=-1), key, count + i)
+    return x
+
+
+def butterfly_pairs(shape) -> bool:
+    """Whether the butterfly kernel takes a (...) shape: an even number of
+    rows, each of an even width up to MAX_BUTTERFLY_WIDTH, so that word k's
+    two elements (k, k + m, m = n / 2) are rows rho and rho + R / 2 of one
+    column, which a block holds together."""
+    width = shape[-1] if shape else 1
+    rows = math.prod(shape[:-1])
+    return width % 2 == 0 and width <= MAX_BUTTERFLY_WIDTH and rows % 2 == 0
+
+
 class _Operand(ctypes.Structure):
     _fields_ = [
         ("ptr", ctypes.c_void_p),
@@ -262,7 +325,9 @@ class _Args(ctypes.Structure):
         ("b", _Operand),
         ("size", ctypes.c_longlong * MAX_DIMS),
         ("nd", ctypes.c_int),
+        ("steps", ctypes.c_int),
         ("n", ctypes.c_longlong),
+        ("b_step", ctypes.c_longlong),
         ("key", ctypes.c_uint64),
         ("count", ctypes.c_uint64),
     ]
@@ -271,25 +336,27 @@ class _Args(ctypes.Structure):
 def _lib():
     lib = build.load("max_step")
     if not getattr(lib, "_curl_bound", False):
-        for fn in (lib.ltz_launch, lib.max_step_launch):
+        for fn in (lib.ltz_launch, lib.max_step_launch, lib.butterfly_launch):
             fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._curl_bound = True
     return lib
 
 
-def _launch(entry, key, count, *shares):
-    _check(count, *shares)
-    dev = shares[0].device
+def _launch(entry, tag, key, count, a, b=None, steps=1, b_step=0):
+    """One launch of ``entry`` (ltz, max_step or butterfly) on share views
+    ``a`` (and ``b``, broadcast to a's shape), counted under ``tag``."""
+    shares = (a,) if b is None else (a, b)
+    dev = a.device
     if any(t.device.type != "cuda" or t.device != dev for t in shares):
         raise ValueError(f"{entry}: the shares must lie on one CUDA device")
-    if entry == "max_step":
-        shares = (shares[0], _broadcast_rolled(*shares))
-    shape = tuple(shares[0].shape[1:])
+    if b is not None:
+        shares = (a, _broadcast_rolled(a, b))
+    shape = tuple(a.shape[1:])
     n = math.prod(shape)
     if len(shape) > MAX_DIMS or n > _MAX_N:
         raise ValueError(f"{entry}: shape {shape} exceeds {MAX_DIMS} dims or 2^31 elements")
-    out = torch.empty(shares[0].shape, dtype=torch.int64, device=dev)
+    out = torch.empty(a.shape, dtype=torch.int64, device=dev)
     if n == 0:
         return out
     args = _Args()
@@ -300,26 +367,51 @@ def _launch(entry, key, count, *shares):
             op_struct.mem[d] = t.stride(d + 1)
     for d, s in enumerate(shape):
         args.size[d] = s
-    args.nd, args.n = len(shape), n
+    args.nd, args.n, args.steps, args.b_step = len(shape), n, steps, b_step
     args.key, args.count = key & ((1 << 64) - 1), count
-    with torch.cuda.device(out.device):
+    with torch.cuda.device(dev):
         rc = getattr(_lib(), f"{entry}_launch")(
-            ctypes.byref(args), out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
+            ctypes.byref(args), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, entry)
-    launches[entry] = launches.get(entry, 0) + 1
+    launches[tag] = launches.get(tag, 0) + 1
     return out
 
 
 def launch_ltz(d, key: int, count: int) -> torch.Tensor:
     """Arithmetic 0/1 shares of d < 0 by the CUDA kernel (d read in place
     whatever its strides)."""
-    return _launch("ltz", key, count, d)
+    _check(count, d)
+    return _launch("ltz", "ltz", key, count, d)
 
 
-def launch_max_step(carry, rolled, key: int, count: int) -> torch.Tensor:
+def launch_max_step(carry, rolled, key: int, count: int, tag: str = "max_step") -> torch.Tensor:
     """New carry shares of one tournament step by the CUDA kernel (rolled
     broadcast to carry's shape by stride 0)."""
-    return _launch("max_step", key, count, carry, rolled)
+    _check(count, carry, rolled)
+    return _launch("max_step", tag, key, count, carry, rolled)
+
+
+def launch_fold_chain(chunked, key: int, count: int) -> torch.Tensor:
+    """``plain_fold_chain`` by one launch: the chunks read in place through
+    their strides, the carry kept in registers."""
+    steps = _fold_steps(chunked)
+    _check_chain(count, steps, chunked)
+    d = chunked.dim()
+    return _launch("max_step", "fold", key, count, chunked.select(d - 2, 0),
+                   chunked.select(d - 2, 1), steps=steps, b_step=chunked.stride(d - 2))
+
+
+def launch_butterfly_chain(x, steps: int, key: int, count: int) -> torch.Tensor:
+    """``plain_butterfly_chain`` by the CUDA kernel: one launch where the
+    rows pair (``butterfly_pairs``), else the step kernel once a step on a
+    rolled copy (counted as "butterfly_unpaired")."""
+    _check_chain(count, steps, x)
+    if butterfly_pairs(tuple(x.shape[1:])):
+        return _launch("butterfly", "butterfly", key, count, x, steps=steps)
+    for i in range(steps):
+        x = launch_max_step(x, x.roll(butterfly_shift(x.shape[-1], i), dims=-1), key, count + i,
+                            tag="butterfly_unpaired")
+    return x
 
 
 def ltz(d, key: int, count: int) -> torch.Tensor:
@@ -334,6 +426,21 @@ def max_step(carry, rolled, key: int, count: int) -> torch.Tensor:
     if carry.device.type != "cuda":
         return plain_max_step(carry, rolled, key, count)
     return launch_max_step(carry, rolled, key, count)
+
+
+def fold_chain(chunked, key: int, count: int) -> torch.Tensor:
+    """The fold kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if chunked.device.type != "cuda":
+        return plain_fold_chain(chunked, key, count)
+    return launch_fold_chain(chunked, key, count)
+
+
+def butterfly_chain(x, steps: int, key: int, count: int) -> torch.Tensor:
+    """The butterfly kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if x.device.type != "cuda":
+        return plain_butterfly_chain(x, steps, key, count)
+    return launch_butterfly_chain(x, steps, key, count)
 
 
 def reset_launches():
@@ -359,25 +466,60 @@ def fused_ltz_mpc(x):
     """Arithmetic 0/1 shares of x < 0 (an MPCTensor at scale 1) in one pass."""
     from .. import random as rng
     from ..encoder import FixedPointEncoder
-    from ..mpc.mpc import MPCTensor
-    from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
 
     out = ltz(x.share, rng.current_keys()["fused"][0], rng._next_count())
     _register_sign_circuit(x.nelement())
-    return MPCTensor(ArithmeticSharedTensor(out, FixedPointEncoder(0)))
+    return _mpc(out, FixedPointEncoder(0))
 
 
-def fused_max_step_mpc(carry, rolled):
-    """new = rolled + (carry >= rolled) * (carry - rolled) in one pass: the
-    comparison's rounds and bytes plus the select's one open."""
+def _register_step(n: int):
+    """One tournament step's rounds and bytes: the comparison's plus the
+    select's one open."""
     from .. import comm
-    from .. import random as rng
+
+    _register_sign_circuit(n)
+    comm.register_virtual("all_sum", 2 * n * 8, rounds=1)
+
+
+def _mpc(out, encoder):
     from ..mpc.mpc import MPCTensor
     from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
 
+    return MPCTensor(ArithmeticSharedTensor(out, encoder))
+
+
+def fused_max_step_mpc(carry, rolled):
+    """new = rolled + (carry >= rolled) * (carry - rolled) in one pass."""
+    from .. import random as rng
+
     out = max_step(carry.share, rolled.share, rng.current_keys()["fused"][0],
                    rng._next_count())
-    n = carry.nelement()
-    _register_sign_circuit(n)
-    comm.register_virtual("all_sum", 2 * n * 8, rounds=1)
-    return MPCTensor(ArithmeticSharedTensor(out, carry.encoder))
+    _register_step(carry.nelement())
+    return _mpc(out, carry.encoder)
+
+
+def fused_fold_chain_mpc(chunked):
+    """The running max of a (..., G, W) MPCTensor over its G chunks, (...,
+    W): the G - 1 steps of ``fused_max_step_mpc`` in one pass, with the
+    draw counts and the rounds and bytes of those steps."""
+    from .. import random as rng
+
+    steps = chunked.size(chunked.dim() - 2) - 1
+    counts = rng.reserve_counts(steps)
+    out = fold_chain(chunked.share, rng.current_keys()["fused"][0], counts[0])
+    for _ in range(steps):
+        _register_step(out[0].numel())
+    return _mpc(out, chunked.encoder)
+
+
+def fused_butterfly_chain_mpc(x, steps: int):
+    """``steps`` butterfly steps over the last dim, x <- step(x, x.roll(
+    -(w >> (i + 1)))), in one pass: the draw counts and the rounds and
+    bytes of those steps of ``fused_max_step_mpc``."""
+    from .. import random as rng
+
+    counts = rng.reserve_counts(steps)
+    out = butterfly_chain(x.share, steps, rng.current_keys()["fused"][0], counts[0])
+    for _ in range(steps):
+        _register_step(x.nelement())
+    return _mpc(out, x.encoder)

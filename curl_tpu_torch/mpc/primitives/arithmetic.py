@@ -191,8 +191,7 @@ class ArithmeticSharedTensor:
 
         if fused_mul.fused_available(self):
             # always the local crypten rescale, as the composable path below
-            m = self.encoder.precision_bits if self.encoder.scale > 1 else 0
-            return fused_mul.fused_square_mpc(self, "crypten", m)
+            return fused_mul.fused_square_mpc(self, "crypten", fused_mul.square_bits(self))
         out = _get_protocol().square(self)
         return out.div_trunc(self.encoder.scale)
 

@@ -224,10 +224,12 @@ def test_word_math_takes_every_draw():
 # ---------------------------------------------------------------------------
 
 def _spy_plain(calls):
-    """Count the plain versions' runs (fused_mul's by op+trunc) until the
-    returned undo is called: on the CPU they stand where a CUDA tensor would
-    launch the kernel."""
-    saved = [(fm, "plain"), (ms, "plain_ltz"), (ms, "plain_max_step")]
+    """Count the plain versions' runs (fused_mul's by op+trunc; the chains'
+    by name, each of whose steps also counts as its per-step plain) until
+    the returned undo is called: on the CPU they stand where a CUDA tensor
+    would launch the kernel."""
+    saved = [(fm, "plain"), (ms, "plain_ltz"), (ms, "plain_max_step"),
+             (fm, "plain_square_chain"), (ms, "plain_fold_chain"), (ms, "plain_butterfly_chain")]
     origs = [getattr(mod, name) for mod, name in saved]
     for (mod, name), orig in zip(saved, origs):
         def counted(*args, _orig=orig, _name=name, **kwargs):
@@ -491,7 +493,10 @@ SCAN_BENCH_OFF = {"functions.max_method": "scan_reduction"}
 def test_tiny_gpt_bench_config_engages_every_fused_pass(tiny_bench):
     on, off = tiny_bench["calls"]["on"], tiny_bench["calls"]["off"]
     assert off == {}
-    for key in ("mul+egk", "square+crypten", "trunc+egk", "plain_ltz", "plain_max_step"):
+    # the tiny vocabulary (32) leaves no chunk to fold: the fold chain is
+    # held by scan_runs and tests/test_torch_fused_chain.py
+    for key in ("mul+egk", "square+crypten", "trunc+egk", "plain_ltz", "plain_max_step",
+                "plain_square_chain", "plain_butterfly_chain"):
         assert on.get(key, 0) > 0, on
 
 
