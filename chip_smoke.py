@@ -31,7 +31,9 @@ without the final line):
   3c. seed    seed_expand's compress and expand (both parties, one party)
               against their plain versions, bit for bit, at the compressed
               paths' tensor sizes and an odd one; expand(compress(e))
-              reconstructs e exactly; time, plain time and bound
+              reconstructs e exactly; the open of a compressed Beaver operand
+              against plain_open at the paths' weight shapes, transposed and
+              not, and odd ones; time, plain time and bound
   4. forward  GPT-2 (768 wide, 12 heads, 12 blocks, vocab 50257) under
               configs/default.yaml, random weights from a numpy seed,
               encrypted by party 0; a private forward on 64 token ids
@@ -52,22 +54,31 @@ without the final line):
               most 0.6 of the materialized model's), latency, rounds and
               bytes (phase 4b's plus what the vocab chunks add, exactly),
               launches of every kernel, seed_expand's included, peak memory,
-              the device busy share, the hidden state and the planted fault
+              the device busy share, the hidden state and the planted fault;
+              one open per compressed weight and one expand per other
+              compressed tensor a forward (no weight expanded); one Beaver
+              matmul of each compressed weight shape by the open route and
+              by the composable route (the same tensor's expansion) at the
+              same draw counters: delta and the output shares bit-identical;
+              the same forward by the composable route, profiled beside it
   4d. neo     GPT-Neo 1.3B's geometry (2048 wide, 16 heads, 24 blocks,
               vocab 50257) through GPT.build_compressed, chunked block
               linears, weights made block by block from a numpy seed: the
-              same readings, against its own pre-declared bound
+              same readings and open checks, against its own pre-declared
+              bound
   5. path     every launch signature (shapes, strides, op) that any of the
               forwards of phases 4, 4b, 4c and 4d passed to ring_mm, philox,
-              fused_mul, ltz, max_step and seed_expand, on fresh operands of
-              the same layout: bit for bit against plain, timed with the L2
-              cache flushed before each call, and summed over each path's
-              launches into each kernel's milliseconds a forward of that
-              path, against the sum of each signature's bound (the larger
-              of bytes and operations); philox's launches, ms and bound by
-              size class; ring_mm's split-K chunks of its largest
-              signatures, each path's ring_mm and ring_mm_acc as multiples
-              of their bounds, and any ring_mm signature above 10x its bound
+              fused_mul, ltz, max_step and seed_expand (expand and open), on
+              fresh operands of the same layout: bit for bit against plain,
+              timed with the L2 cache flushed before each call, and summed
+              over each path's launches into each kernel's milliseconds a
+              forward of that path, against the sum of each signature's
+              bound (the larger of bytes and operations); philox's
+              launches, ms and bound by size class; ring_mm's split-K
+              chunks of its largest signatures, each path's ring_mm and
+              ring_mm_acc as multiples of their bounds, and any ring_mm
+              signature above 10x its bound; each open signature's
+              multiple of its bound
 
 It prints one JSON line with every kernel's numbers (launches, time,
 plain time and bound of one phase 4c forward, the slice's main path, and
@@ -150,6 +161,17 @@ SEED_SIZES = ((3072 * 768, "GPT-2 FFN weight, 3072 x 768"),
               (6283 * 2048, "GPT-Neo vocab chunk, 6283 x 2048"),
               (2048 * 2048, "GPT-Neo ChunkedLinear chunk, 2048 x 2048"), (1_000_003, "odd"))
 SEED_KEY = 0x0DDB_A11C_0FFE_E5ED
+# phase 3c: the open of a compressed Beaver operand at the paths' weight
+# shapes (share0's stored shape, whether the product takes its transpose)
+# and odd ones
+OPEN_SHAPES = (((2304, 768), True, "GPT-2 QKV weight"), ((768, 768), True, "GPT-2 projection"),
+               ((3072, 768), True, "GPT-2 FFN up"), ((768, 3072), True, "GPT-2 FFN down"),
+               ((6283, 768), True, "GPT-2 LM head chunk"),
+               ((6283, 768), False, "GPT-2 embedding chunk"),
+               ((2048, 2048), True, "GPT-Neo block linear chunk"),
+               ((6283, 2048), True, "GPT-Neo LM head chunk"),
+               ((6283, 2048), False, "GPT-Neo embedding chunk"),
+               ((1001, 999), True, "odd, transposed"), ((999, 1001), False, "odd"))
 # bench.py's compressed construction (bench.py:218-223): 8 vocab chunks
 HEAD_CHUNKS = 8
 # Phase 4d's bound on the final-LayerNorm hidden state's scale-free relative
@@ -297,12 +319,12 @@ RING_EXTREMES = (("INT64_MIN", -(2 ** 63)), ("-1", -1), ("0x7f..7f", 0x7F7F7F7F7
                  ("0x80..80", 0x8080808080808080 - 2 ** 64))
 # GPT-Neo's block products as phase 4d passes them (shapes, strides): the
 # dealer's a @ b, the Beaver eps @ b + x @ delta (delta of Linear's
-# weight.t(), column-major), and the FFN down projection's, whose x is a
-# 2048-wide slice of the (64, 8192) activation
+# compressed weight.t(), row-major as the open writes it), and the FFN down
+# projection's, whose x is a 2048-wide slice of the (64, 8192) activation
 NEO_X = ((1, 64, 2048), (131072, 2048, 1))
 NEO_W = ((2048, 2048), (2048, 1))
 NEO_B = ((2, 1, 2048, 2048), (4194304, 4194304, 2048, 1))
-NEO_DELTA = ((2048, 2048), (1, 2048))
+NEO_DELTA = ((2048, 2048), (2048, 1))
 NEO_RING_MM = {
     "neo dealer (1,64,2048)@(2048,2048)": [NEO_X + NEO_W],
     "neo beaver eps@b + x@delta.t() at 2048": [
@@ -765,18 +787,24 @@ def check_fused(dev, gen):
 # Phase 3c: the seed expansion against its plain version
 # ---------------------------------------------------------------------------
 
-def seed_work(mode, n):
+def seed_work(mode, n, b=None):
     """(bytes, 32-bit operations) of one seed_expand call over n elements:
     the input read once, the output written once (two rows for expand), one
-    Philox call per element pair."""
+    Philox call per element pair; the open reads share0 and both of b's
+    shares (``b``: their (shape, strides); a broadcast b at its own size)
+    and writes delta, 32 bytes an element."""
+    if mode == "open":
+        return (2 * n + _distinct_numel(*b)) * 8, (n + 1) // 2 * PHILOX_OPS
     return (3 if mode == "expand" else 2) * n * 8, (n + 1) // 2 * PHILOX_OPS
 
 
-def seed_run(mode, x, plain=False):
+def seed_run(mode, x, plain=False, b=None, transposed=False):
     from curl_tpu_torch.kernels import seed_expand as se
 
     if mode == "compress":
         return (se.plain_compress if plain else se.launch_compress)(x, SEED_KEY)
+    if mode == "open":
+        return (se.plain_open if plain else se.launch_open)(x, SEED_KEY, transposed, b)
     parties = 2 if mode == "expand" else 1
     return (se.plain_expand if plain else se.launch_expand)(x, SEED_KEY, parties)
 
@@ -802,6 +830,28 @@ def check_seed(dev, gen):
                 f"(plain {plain_ms:.3f} ms, bound {b:.5f} ms by {by})")
             del got
         del e, share0
+    torch.cuda.empty_cache()
+
+
+def check_open(dev, gen):
+    """The open of a compressed Beaver operand bit for bit against
+    plain_open at the paths' weight shapes and odd ones (b contiguous, as
+    the dealer makes it); timed, each call L2-cold."""
+    from curl_tpu_torch.kernels import seed_expand as se
+
+    for shape, transposed, label in OPEN_SHAPES:
+        share0 = rand_i64(gen, shape, dev)
+        b = rand_i64(gen, (2,) + se.view_shape(share0, transposed), dev)
+        got = seed_run("open", share0, b=b, transposed=transposed)
+        if not torch.equal(got, seed_run("open", share0, True, b, transposed)):
+            raise AssertionError(f"seed_expand open {shape} transposed={transposed}: kernel != plain")
+        ms = cuda_ms(lambda: seed_run("open", share0, b=b, transposed=transposed), 10, cold=True)
+        plain_ms = cuda_ms(lambda: seed_run("open", share0, True, b, transposed), 2, cold=True)
+        b_ms, by = bound(*seed_work("open", share0.numel(), (tuple(b.shape), b.stride())))
+        log(f"[seed] open {shape}{'.t()' if transposed else ''} ({label}): bit-exact vs plain; "
+            f"{ms:.4f} ms L2-cold (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by}, "
+            f"{ms / b_ms:.2f}x)")
+        del share0, b, got
     torch.cuda.empty_cache()
 
 
@@ -955,7 +1005,8 @@ def recording_launches():
     its chain of squarings ("square_chain") by truncation, bits and steps
     too; ltz and max_step by their operands' shapes and strides, max_step's
     chains ("fold", "butterfly") as their own signatures, the butterfly's
-    with its steps; seed_expand by mode, elements and parties."""
+    with its steps; seed_expand by mode, elements and parties, and its open
+    ("open") by transposition, share0's shape and b's shape and strides."""
     import curl_tpu_torch.random as crandom
     from curl_tpu_torch.kernels import fused_mul, max_step, ring_mm, seed_expand
 
@@ -1006,12 +1057,16 @@ def recording_launches():
         note("seed_expand", ("expand" if parties == 2 else "expand1", share0.numel(), parties))
         return orig["expand"](share0, key, parties)
 
+    def rec_open(share0, key, transposed, b_share):
+        note("open", ("open", transposed, tuple(share0.shape)) + layout(b_share)[0])
+        return orig["open"](share0, key, transposed, b_share)
+
     targets = [(ring_mm, "ring_mm", rec_ring_mm), (crandom, "philox_group", rec_philox_group),
                (fused_mul, "fused_mul", rec_fused_mul),
                (fused_mul, "square_chain", rec_square_chain), (max_step, "ltz", rec_ltz),
                (max_step, "max_step", rec_max_step), (max_step, "fold_chain", rec_fold_chain),
                (max_step, "butterfly_chain", rec_butterfly_chain),
-               (seed_expand, "expand", rec_expand)]
+               (seed_expand, "expand", rec_expand), (seed_expand, "open", rec_open)]
     orig = {name: getattr(mod, name) for mod, name, _ in targets}
     for mod, name, fn in targets:
         setattr(mod, name, fn)
@@ -1046,7 +1101,8 @@ def read_launches():
                  "fused_mul": sum(fused_mul.launches.values()),
                  "ltz": max_step.launches.get("ltz", 0),
                  "max_step": sum(steps.values()),
-                 "seed_expand": sum(seed_expand.launches.values())}
+                 "seed_expand": sum(n for k, n in seed_expand.launches.items() if k != "open"),
+                 "open": seed_expand.launches.get("open", 0)}
     return by_kernel, dict(fused_mul.launches, **steps), dict(philox.launches)
 
 
@@ -1063,7 +1119,7 @@ def recorded_launches(calls):
     by_kernel = {"ring_mm": 0, "ring_mm_acc": 0}
     for sig, n in calls["ring_mm"].items():
         by_kernel["ring_mm" if len(sig) == 1 else "ring_mm_acc"] += n
-    for kind in ("philox", "ltz", "seed_expand"):
+    for kind in ("philox", "ltz", "seed_expand", "open"):
         by_kernel[kind] = sum(calls[kind].values())
     by_op = {}
 
@@ -1098,14 +1154,22 @@ def private_hidden(model, xe, skip=None):
     return model.ln(h)
 
 
-def profile_forward(model, xe, best_s):
+# the port's kernels as the profiler names them
+PORT_KERNEL_NAMES = ("ring_mm_kernel", "philox_group_kernel", "fused_mul_kernel",
+                     "ltz_pair_kernel", "step_kernel<1>", "step_kernel<2>",
+                     "seed_expand_kernel", "open_flat_kernel", "open_tile_kernel")
+
+
+def profile_forward(model, xe, best_s, tag="profile", top=10):
     """One more forward under torch.profiler: the device's busy time (sum
-    of kernel self time) against the best unprofiled latency, and the
-    kernels that take the most of it."""
+    of kernel self time) against the best unprofiled latency, the kernels
+    that take the most of it and, for each of those that is not the
+    port's, the PyTorch ops (with their input shapes) that launched it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         model(xe)
         torch.cuda.synchronize()
     # device-side events only: a host op's device time repeats its kernels'
@@ -1113,23 +1177,48 @@ def profile_forward(model, xe, best_s):
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
-        log("[profile] the profiler recorded no device time: device busy share not measured")
+        log(f"[{tag}] the profiler recorded no device time: device busy share not measured")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-    log(f"[profile] device busy {busy_ms:.1f} ms per forward, "
+    log(f"[{tag}] device busy {busy_ms:.1f} ms per forward, "
         f"{busy_ms / (best_s * 1e3):.1%} of the best unprofiled latency {best_s * 1e3:.1f} ms; "
         f"{sum(e.count for e in events)} kernel launches")
-    for e in top:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    # each kernel's launching op (the innermost) and its input shapes
+    launched_by = {}
+    for e in prof.events():
+        for k in e.kernels:
+            key = (k.name, e.name, str(e.input_shapes))
+            us, n = launched_by.get(key, (0.0, 0))
+            launched_by[key] = (us + k.duration, n + 1)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+        if any(name in e.key for name in PORT_KERNEL_NAMES):
+            continue
+        ops = sorted(((us, n, op, shapes) for (name, op, shapes), (us, n) in launched_by.items()
+                      if name == e.key), reverse=True)
+        log(f"[{tag}]       {e.key[90:260]}; launched by " + "; ".join(
+            f"{op} {shapes[:110]} {n}x {us / 1e3:.2f} ms" for us, n, op, shapes in ops[:3]))
     port = {}
     for e in events:
-        for name in ("ring_mm_kernel", "philox_group_kernel", "fused_mul_kernel",
-                     "step_kernel<0>", "step_kernel<1>", "step_kernel<2>", "seed_expand_kernel"):
+        for name in PORT_KERNEL_NAMES:
             if name in e.key:
                 ms, n = port.get(name, (0.0, 0))
                 port[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    log("[profile] the port's kernels in the forward: " + ", ".join(
+    log(f"[{tag}] the port's kernels in the forward: " + ", ".join(
         f"{name} {ms:.2f} ms / {n}" for name, (ms, n) in port.items()))
+
+
+@contextlib.contextmanager
+def composable_route():
+    """Beaver matmuls with a compressed y take the composable route while
+    the context is open: y expanded at full size, then y - b revealed."""
+    from curl_tpu_torch.mpc.primitives import beaver
+
+    opens = beaver._opens_compressed
+    beaver._opens_compressed = lambda op, y: False
+    try:
+        yield
+    finally:
+        beaver._opens_compressed = opens
 
 
 def run_forward(dev):
@@ -1301,8 +1390,8 @@ def run_bench_forward(fw):
         failures.append(f"bench final-LN hidden error ({fmt_stats(sound)}) exceeds its bounds")
     if fault["scale_free_l2"] <= limit:
         failures.append(f"bench planted fault ({fmt_stats(fault)}) passes the bound {limit}")
-    # the materialized model expands no compressed share
-    missing = [k for k, n in launches.items() if n == 0 and k != "seed_expand"]
+    # the materialized model expands and opens no compressed share
+    missing = [k for k, n in launches.items() if n == 0 and k not in ("seed_expand", "open")]
     missing += [op for op in ("mul", "square", "trunc")
                 if not any(tag.startswith(op + "+") for tag in by_op)]
     missing += unlaunched_chains(by_op)
@@ -1374,7 +1463,134 @@ def drive(tag, model, xe, reps):
         failures.append(f"{tag} recorded launches {recorded_launches(calls)} != counted "
                         f"{(launches, by_op)}")
     return dict(out=out, hidden=hidden, stats=stats, launches=launches, by_op=by_op, calls=calls,
-                peak=peak), failures
+                peak=peak, best_s=min(lat)), failures
+
+
+def profile_composable(tag, model, xe, best_s):
+    """The same forward as before the open (each compressed weight
+    expanded, then y - b revealed): its peak memory and its profile, to set
+    beside drive's. Run after the forward's other checks, whose draws it
+    would otherwise move."""
+    held = torch.cuda.memory_allocated()
+    with composable_route():
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(xe)
+        torch.cuda.synchronize()
+        lat = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] by the composable route: {lat:.4f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB in the forward, {(peak - held) / 2**30:.2f} GiB above the "
+            f"{held / 2**30:.2f} GiB held before it")
+        profile_forward(model, xe, best_s, tag="profile, composable route")
+
+
+def compressed_tensors(model):
+    """The model's compressed parameters: (the 2-D ones, the y operands of
+    its Beaver matmuls: linear weights and their chunks, the embedding's
+    chunks; the others: LayerNorm gains, biases, pos_embed)."""
+    from curl_tpu_torch.mpc.primitives.compressed import SeedCompressedArithmetic
+
+    weights, others = [], []
+    for _, p in model.named_params():
+        for t in p if isinstance(p, list) else [p]:
+            inner = getattr(t, "_tensor", None)
+            if isinstance(inner, SeedCompressedArithmetic):
+                (weights if inner.ndim == 2 else others).append(inner)
+    return weights, others
+
+
+def open_checks(tag, model, res):
+    """One forward (no position chunks on these paths) opened each
+    compressed weight once and expanded each other compressed tensor once:
+    no weight was expanded. Returns the failures."""
+    calls, launches = res["calls"], res["launches"]
+    weights, others = compressed_tensors(model)
+    opened = sorted(math.prod(sig[2]) for sig in calls["open"])
+    expanded = sorted(sig[1] for sig in calls["seed_expand"])
+    log(f"[{tag}] seed_expand in one forward: open {launches['open']} launches for "
+        f"{len(weights)} compressed weights ({len(opened)} signatures, {opened[:1]} to "
+        f"{opened[-1:]} elements); expand {launches['seed_expand']} launches for {len(others)} "
+        f"other compressed tensors, the LayerNorm gains, biases and pos_embed ({len(expanded)} "
+        f"signatures, {expanded[:1]} to {expanded[-1:]} elements)")
+    if (launches["open"], launches["seed_expand"]) != (len(weights), len(others)):
+        return [f"{tag}: open and expand launches {launches['open']}, {launches['seed_expand']} != "
+                f"the {len(weights)} compressed weights and {len(others)} other compressed tensors"]
+    return []
+
+
+def check_open_routes(tag, model, gen):
+    """One Beaver matmul of each compressed weight shape the model's
+    products open, by the open route and by the composable route (the same
+    tensor's expansion as a plain ArithmeticSharedTensor) from the same
+    draw counter: delta, the output shares and the CommStats must be equal.
+    Returns the failures."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch import comm
+    from curl_tpu_torch import random as crandom
+    from curl_tpu_torch.kernels import seed_expand
+    from curl_tpu_torch.models.gpt import ChunkedEmbedding
+    from curl_tpu_torch.mpc.primitives import beaver
+    from curl_tpu_torch.mpc.primitives.arithmetic import ArithmeticSharedTensor
+    from curl_tpu_torch.mpc.primitives.compressed import SeedCompressedArithmetic
+
+    cases = {}  # (transposed, shape): one compressed weight of that use
+    for m in model.modules():
+        for p in getattr(m, "_params", {}).values():
+            for t in p if isinstance(p, list) else [p]:
+                w = getattr(t, "_tensor", None)
+                if isinstance(w, SeedCompressedArithmetic) and w.ndim == 2:
+                    cases.setdefault((not isinstance(m, ChunkedEmbedding), tuple(w.shape)), w)
+    orig_open, orig_sum = seed_expand.open, comm.all_sum
+    deltas = []
+
+    def open_(*args):
+        deltas.append(("open", orig_open(*args)))
+        return deltas[-1][1]
+
+    def all_sum(x):
+        out = orig_sum(x)
+        if isinstance(x, list):  # the composable route's batched reveal: (eps, delta)
+            deltas.append(("all_sum", out[1]))
+        return out
+
+    failures = []
+    for (transposed, shape), w in sorted(cases.items()):
+        if transposed:  # a linear's x @ W.t()
+            x = ct.cryptensor(torch.randn((1, SEQ, shape[1]), generator=gen,
+                                          dtype=torch.float64))._tensor
+            y = w.t()
+        else:  # an embedding chunk: a one-hot @ the chunk at scale 1
+            rows = torch.randint(0, shape[0], (SEQ,), generator=gen)
+            x = ct.cryptensor(torch.nn.functional.one_hot(rows, shape[0]).to(torch.float64),
+                              precision=0)._tensor
+            y = beaver._raw(w)
+        plain_y = ArithmeticSharedTensor(y.share, y.encoder)
+        c0, out = crandom._counter, []
+        del deltas[:]
+        for operand in (y, plain_y):
+            crandom._counter = c0
+            ct.reset_communication_stats()
+            seed_expand.open, comm.all_sum = open_, all_sum
+            try:
+                z = beaver.matmul(x, operand)
+            finally:
+                seed_expand.open, comm.all_sum = orig_open, orig_sum
+            out.append((z.share, ct.get_communication_stats()))
+        what = f"{shape}{'.t()' if transposed else ' at scale 1'}"
+        routes = [r for r, _ in deltas]
+        same = (routes == ["open", "all_sum"] and torch.equal(deltas[0][1], deltas[1][1])
+                and torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1])
+        log(f"[{tag}] one Beaver matmul of {what}, open route against composable route at the "
+            f"same counters: {'delta, output shares and CommStats equal' if same else 'DIFFER'} "
+            f"(routes {routes}; {out[0][1]['rounds']} round, {out[0][1]['bytes']} bytes)")
+        if not same:
+            failures.append(f"{tag}: the open and composable routes differ at {what}")
+        del x, y, plain_y, z, out
+        del deltas[:]
+    torch.cuda.empty_cache()
+    return failures
 
 
 def chunked_extra_bytes(rows, d, vocab, n):
@@ -1407,7 +1623,7 @@ def build_timed(tag, **kw):
     return model, resident
 
 
-def run_compressed(fw, bench_stats):
+def run_compressed(fw, bench_stats, gen):
     """Phase 4c: bench.py's default GPT-2 run: phase 4's weights and tokens
     through GPT.build_compressed(head_vocab_chunks=8) under bench.py's
     kernel configuration."""
@@ -1426,6 +1642,9 @@ def run_compressed(fw, bench_stats):
         res, failures = drive("compressed", model, xe, reps=3)
         fault = hidden_stats(private_hidden(model, xe, skip=fw["fault_block"]).get_plain_text(),
                              fw["ref_hidden"])
+        failures += open_checks("compressed", model, res)
+        failures += check_open_routes("compressed", model, gen)
+        profile_composable("compressed", model, xe, res["best_s"])
     sound = hidden_stats(res["hidden"], fw["ref_hidden"])
     ratio = resident / materialized
     want_rounds = bench_stats["rounds"] + 3 * (HEAD_CHUNKS - 1)
@@ -1455,7 +1674,7 @@ def run_compressed(fw, bench_stats):
     return res, failures
 
 
-def run_neo(dev):
+def run_neo(dev, gen):
     """Phase 4d: GPT-Neo 1.3B's geometry at full width through
     GPT.build_compressed (chunked block linears at their default), under
     bench.py's settings for the model."""
@@ -1494,6 +1713,9 @@ def run_neo(dev):
         xe = ct.cryptensor(tokens, precision=0)
         res, failures = drive("neo", model, xe, reps=2)
         fault = hidden_stats(private_hidden(model, xe, skip=j).get_plain_text(), ref)
+        failures += open_checks("neo", model, res)
+        failures += check_open_routes("neo", model, gen)
+        profile_composable("neo", model, xe, res["best_s"])
     sound = hidden_stats(res["hidden"], ref)
     log(f"[neo] {chunked} ChunkedLinear modules in the blocks; resident share bytes {resident} "
         f"({resident / 2**30:.3f} GiB)")
@@ -1542,6 +1764,9 @@ PATH_KERNELS = (
      "curl_tpu_torch/csrc/max_step.cu", None),
     ("seed_expand", ("seed_expand",), None, "curl_tpu/ops/pallas_rng.py:43",
      "curl_tpu_torch/csrc/seed_expand.cu", None),
+    ("open", ("open",), None,
+     "curl_tpu/ops/pallas_rng.py:43 (its draws as the Beaver open reads them, "
+     "curl_tpu/mpc/primitives/beaver.py:56)", "curl_tpu_torch/csrc/seed_expand.cu", None),
     ("fused_mul square chain", ("square_chain",), None,
      "curl_tpu/ops/pallas_mul.py:177 (exp's squarings, curl_tpu/functions/approximations.py:96)",
      "curl_tpu_torch/csrc/fused_mul.cu", "fused_mul"),
@@ -1554,7 +1779,7 @@ PATH_KERNELS = (
 )
 # the kernels read_launches counts, and the kinds recording_launches records
 PATH_FAMILIES = tuple(name for name, *_, part_of in PATH_KERNELS if part_of is None)
-KINDS = ("ring_mm", "philox") + FUSED_KINDS + ("seed_expand",)
+KINDS = ("ring_mm", "philox") + FUSED_KINDS + ("seed_expand", "open")
 # the launch-count tags of the chain entries (read_launches' by_op)
 CHAIN_TAGS = {"fused_mul square chain": lambda tag: tag.endswith("+chain"),
               "max_step fold": lambda tag: tag == "fold",
@@ -1564,10 +1789,18 @@ CHAIN_TAGS = {"fused_mul square chain": lambda tag: tag.endswith("+chain"),
 MAIN_PATH = "compressed"
 
 
+def _other_layout(t):
+    """A 2-D operand's copy in the other of row- and column-major."""
+    return t.t().contiguous().t() if t.stride(-1) == 1 else t.contiguous()
+
+
 def time_ring_mm(sig, dev, gen):
     """One (shapes, strides) signature of ring_mm on fresh random operands
     of the same layout: bit-exact against plain; its time (L2-cold), on
-    contiguous copies (what the layout costs), plain, and bounds."""
+    contiguous copies (what the layout costs), plain, and bounds. A Beaver
+    reconstruction whose delta (the second pair's B) is 2-D is also timed
+    with delta in the other of row- and column-major (the open route writes
+    it row-major, the composable route's is column-major for weight.t())."""
     from curl_tpu_torch.kernels import ring_mm
 
     pairs = [(_strided_i64(gen, sa, st_a, dev), _strided_i64(gen, sb, st_b, dev))
@@ -1580,8 +1813,12 @@ def time_ring_mm(sig, dev, gen):
                  for sa, st_a, sb, st_b in sig) * 8 + got.numel() * 8
     macs = sum(got.numel() * sa[-1] for sa, _, _, _ in sig)
     g = ring_mm.plan(pairs, torch.cuda.get_device_properties(dev).multi_processor_count)
+    other = {}
+    if len(pairs) == 2 and pairs[1][1].dim() == 2:
+        flipped = [pairs[0], (pairs[1][0], _other_layout(pairs[1][1]))]
+        other["other_ms"] = cuda_ms(lambda: ring_mm.ring_mm(flipped), 5, cold=True)
     return dict(split=f"{g['splits']} chunks of {g['chunk']} 32-k tiles, "
-                      f"{g['out_tiles'] * g['splits']} blocks",
+                      f"{g['out_tiles'] * g['splits']} blocks", **other,
                 ms=cuda_ms(lambda: ring_mm.ring_mm(pairs), 5, cold=True),
                 dense_ms=cuda_ms(lambda: ring_mm.ring_mm(dense), 5, cold=True),
                 plain_ms=cuda_ms(lambda: ring_mm.plain(pairs), 1, cold=True),
@@ -1650,17 +1887,26 @@ def time_fused(kind, sig, count, dev, gen):
 
 
 def time_seed(sig, dev, gen):
-    """One (mode, elements, parties) of seed_expand on fresh shares:
-    bit-exact against plain, timed (L2-cold)."""
-    mode, n, _ = sig
-    x = rand_i64(gen, (n,), dev)
-    got = seed_run(mode, x)
-    if not torch.equal(got, seed_run(mode, x, plain=True)):
+    """One (mode, elements, parties) of seed_expand, or one ("open",
+    transposed, share0's shape, b's shape, b's strides) of its open, on
+    fresh shares: bit-exact against plain, timed (L2-cold)."""
+    mode, b, transposed = sig[0], None, False
+    if mode == "open":
+        _, transposed, shape, b_shape, b_stride = sig
+        x = rand_i64(gen, shape, dev)
+        b = _strided_i64(gen, b_shape, b_stride, dev)
+        work = seed_work(mode, x.numel(), (b_shape, b_stride))
+    else:
+        x = rand_i64(gen, (sig[1],), dev)
+        work = seed_work(mode, sig[1])
+
+    def run(plain=False):
+        return seed_run(mode, x, plain, b, transposed)
+
+    if not torch.equal(run(), run(plain=True)):
         raise AssertionError(f"seed_expand at the path signature {sig}: kernel != plain")
-    nbytes, nops = seed_work(mode, n)
-    return dict(ms=cuda_ms(lambda: seed_run(mode, x), 5, cold=True),
-                plain_ms=cuda_ms(lambda: seed_run(mode, x, plain=True), 1, cold=True),
-                t_bytes=nbytes / HBM_BYTES_PER_S * 1e3, t_ops=nops / INT32_OPS_PER_S * 1e3)
+    return dict(ms=cuda_ms(run, 5, cold=True), plain_ms=cuda_ms(lambda: run(True), 1, cold=True),
+                t_bytes=work[0] / HBM_BYTES_PER_S * 1e3, t_ops=work[1] / INT32_OPS_PER_S * 1e3)
 
 
 def time_signatures(paths, dev, gen):
@@ -1678,7 +1924,7 @@ def time_signatures(paths, dev, gen):
                 rows[kind][sig] = time_ring_mm(sig, dev, gen)
             elif kind == "philox":
                 rows[kind][sig] = time_philox(sig, dev, gen)
-            elif kind == "seed_expand":
+            elif kind in ("seed_expand", "open"):
                 rows[kind][sig] = time_seed(sig, dev, gen)
             else:
                 rows[kind][sig] = time_fused(kind, sig, i, dev, gen)
@@ -1704,6 +1950,8 @@ def _describe(kind, sig):
             for what, how, keys, n, kbits, _, dk, emit in sig)
     if kind == "seed_expand":
         return f"{sig[0]} n {sig[1]} parties {sig[2]}"
+    if kind == "open":
+        return f"share0 {sig[2]}{'.t()' if sig[1] else ''}, b {sig[3]}{sig[4]}"
     return " ".join(str(x) for x in sig)
 
 
@@ -1722,6 +1970,7 @@ def path_totals(path, calls, rows, top=8):
             if part_of is not None:  # logged with the kernel it is a part of
                 break
             dense = f"; contiguous {r['dense_ms']:.4f} ms" if "dense_ms" in r else ""
+            dense += f"; delta in the other layout {r['other_ms']:.4f} ms" if "other_ms" in r else ""
             dense += f"; {r['split']}" if "split" in r else ""
             log(f"[path] {path} {name} x{n}: {r['ms']:.4f} ms each, {r['ms'] * n:.3f} ms a forward "
                 f"({r['ms'] * n / (tot['ms'] or 1.0):.1%}){dense}; bound "
@@ -1736,13 +1985,17 @@ def path_totals(path, calls, rows, top=8):
         b = sum(by_side.values())
         by = max(by_side, key=by_side.get)
         launches = sum(n for _, n, _, _ in mine)
+        dense = ""
+        if any("other_ms" in r for _, _, r, _ in mine):
+            dense = (f"; with each 2-D delta in the other layout "
+                     f"{sum(r.get('other_ms', r['ms']) * n for _, n, r, _ in mine):.3f} ms")
         log(f"[path] {path} {name}: one forward's {launches} launches over {len(mine)} "
             f"signatures: {tot['ms']:.3f} ms (bound {b:.4f} ms, {by_side['bytes']:.4f} by bytes + "
             f"{by_side['operations']:.4f} by operations, {tot['ms'] / b:.2f}x; plain "
-            f"{tot['plain_ms']:.1f} ms)")
+            f"{tot['plain_ms']:.1f} ms{dense})")
         if name == "philox":
             philox_size_classes(path, [m[:3] for m in mine])
-        if name in ("fused_mul", "ltz", "max_step"):
+        if name in ("fused_mul", "ltz", "max_step", "open"):
             for sig, n, r, kind in sorted(mine, key=lambda m: -m[2]["ms"] / max(m[2]["t_bytes"],
                                                                                 m[2]["t_ops"])):
                 if fused_elements(kind, sig) > FUSED_LARGE:
@@ -1760,7 +2013,9 @@ FUSED_LARGE = 1_000_000
 
 
 def fused_elements(kind, sig):
-    """Output elements of one fused protocol launch."""
+    """Output elements of one fused protocol launch (of an open: of y)."""
+    if kind == "open":
+        return math.prod(sig[2])
     spec = fused_spec(kind, sig)
     shape = spec["operands"][0][0]
     n = math.prod(shape[1:])
@@ -1818,7 +2073,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    for name in ("philox", "fused_mul", "max_step"):
+    for name in ("philox", "fused_mul", "max_step", "seed_expand"):
         spills = [line for line in build.build_logs.get(name, "").splitlines()
                   if re.search(r"[1-9]\d* bytes spill", line)]
         if spills:
@@ -1839,6 +2094,7 @@ def main():
     torch.cuda.empty_cache()
     check_fused(dev, gen)
     check_seed(dev, gen)
+    check_open(dev, gen)
 
     kernels, failures = run_paths(dev, gen)
     if failures:
@@ -1862,12 +2118,12 @@ def run_paths(dev, gen):
     launches, by_op, calls, bench_failures, bench_stats = run_bench_forward(forward)
     failures += bench_failures
     paths["bench"] = (calls, launches, by_op)
-    compressed, comp_failures = run_compressed(forward, bench_stats)
+    compressed, comp_failures = run_compressed(forward, bench_stats, gen)
     failures += comp_failures
     paths["compressed"] = (compressed["calls"], compressed["launches"], compressed["by_op"])
     del forward, compressed
     torch.cuda.empty_cache()
-    neo, neo_failures = run_neo(dev)
+    neo, neo_failures = run_neo(dev, gen)
     failures += neo_failures
     paths["neo"] = (neo["calls"], neo["launches"], neo["by_op"])
     del neo

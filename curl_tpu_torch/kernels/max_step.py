@@ -330,6 +330,7 @@ class _Args(ctypes.Structure):
         ("b_step", ctypes.c_longlong),
         ("key", ctypes.c_uint64),
         ("count", ctypes.c_uint64),
+        ("dense", ctypes.c_int),
     ]
 
 
@@ -369,6 +370,7 @@ def _launch(entry, tag, key, count, a, b=None, steps=1, b_step=0):
         args.size[d] = s
     args.nd, args.n, args.steps, args.b_step = len(shape), n, steps, b_step
     args.key, args.count = key & ((1 << 64) - 1), count
+    args.dense = int(a[0].is_contiguous())
     with torch.cuda.device(dev):
         rc = getattr(_lib(), f"{entry}_launch")(
             ctypes.byref(args), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -378,8 +380,8 @@ def _launch(entry, tag, key, count, a, b=None, steps=1, b_step=0):
 
 
 def launch_ltz(d, key: int, count: int) -> torch.Tensor:
-    """Arithmetic 0/1 shares of d < 0 by the CUDA kernel (d read in place
-    whatever its strides)."""
+    """Arithmetic 0/1 shares of d < 0 by the CUDA kernel, a thread per word
+    pair (d read in place whatever its strides)."""
     _check(count, d)
     return _launch("ltz", "ltz", key, count, d)
 

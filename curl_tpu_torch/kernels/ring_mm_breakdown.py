@@ -39,7 +39,8 @@ def _c(*shape):
 
 
 def _beaver(m, k, n):
-    # eps @ b + x @ delta, delta of Linear's weight.t() (column-major)
+    # eps @ b + x @ delta, delta of a materialized Linear's weight.t()
+    # (column-major; the open of a compressed weight writes it row-major)
     return [_c(1, m, k) + _c(2, 1, k, n), _c(2, 1, m, k) + ((k, n), (1, k))]
 
 

@@ -13,6 +13,11 @@ values, never shares.
   compress(encoded, key)          share0 = encoded - stream(key)
   expand(share0, key, parties=2)  (2, *shape): row 0 share0, row 1 stream(key)
   expand(share0, key, parties=1)  (1, *shape): share0 + stream(key)
+  open(share0, key, transposed, b_share)
+                                  delta = share0 + stream(key) - b0 - b1 over
+                                  y's view (stored, or transposed in its last
+                                  two dims): the Beaver open of a compressed
+                                  matmul operand y against the dealer's b
 
 On a CUDA tensor each call is one launch of the kernel, which raises if it
 fails; on a CPU tensor the plain version runs.
@@ -29,8 +34,18 @@ from .philox import stream
 
 MODES = {"compress": 0, "expand": 1, "expand1": 2}
 
-# launches of the kernel, by mode
+# launches of the kernel, by mode ("open" for the open)
 launches = {}
+
+
+class _OpenArgs(ctypes.Structure):
+    _fields_ = [
+        ("delta", ctypes.c_void_p), ("share0", ctypes.c_void_p), ("b", ctypes.c_void_p),
+        ("batches", ctypes.c_longlong), ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong),
+        ("b_party", ctypes.c_longlong), ("b_batch", ctypes.c_longlong),
+        ("b_row", ctypes.c_longlong), ("b_col", ctypes.c_longlong),
+        ("key", ctypes.c_uint64), ("dense", ctypes.c_int),
+    ]
 
 
 def _lib():
@@ -41,6 +56,8 @@ def _lib():
             ctypes.c_int, ctypes.c_void_p,
         ]
         lib.seed_expand_launch.restype = ctypes.c_int
+        lib.seed_open_launch.argtypes = [ctypes.POINTER(_OpenArgs), ctypes.c_int, ctypes.c_void_p]
+        lib.seed_open_launch.restype = ctypes.c_int
         lib._curl_bound = True
     return lib
 
@@ -116,6 +133,68 @@ def expand(share0: torch.Tensor, key: int, parties: int = 2) -> torch.Tensor:
     if share0.device.type == "cuda":
         return launch_expand(share0, key, parties)
     return plain_expand(share0, key, parties)
+
+
+def view_shape(share0: torch.Tensor, transposed: bool) -> tuple:
+    """The shape of a compressed tensor's view: share0's, or with its last
+    two dims swapped."""
+    shape = tuple(share0.shape)
+    return shape[:-2] + (shape[-1], shape[-2]) if transposed else shape
+
+
+def _check_open(share0: torch.Tensor, key: int, transposed: bool, b_share: torch.Tensor):
+    _check(share0, key)
+    if transposed and share0.dim() < 2:
+        raise ValueError("seed_expand open: a transposed view needs at least 2 dims")
+    want = (2,) + view_shape(share0, transposed)
+    if not isinstance(b_share, torch.Tensor) or b_share.dtype != torch.int64 \
+            or tuple(b_share.shape) != want:
+        raise ValueError(f"seed_expand open: b's shares must be int64 of shape {want}")
+    if b_share.device != share0.device:
+        raise ValueError("seed_expand open: share0 and b must lie on one device")
+
+
+def plain_open(share0: torch.Tensor, key: int, transposed: bool,
+               b_share: torch.Tensor) -> torch.Tensor:
+    """The open in plain torch (any device): both parties' shares from
+    plain_expand, viewed, less b's, summed over the parties; contiguous."""
+    _check_open(share0, key, transposed, b_share)
+    y = plain_expand(share0, key)
+    if transposed:
+        y = y.transpose(-1, -2)
+    return (y[0] + y[1] - b_share[0] - b_share[1]).contiguous()
+
+
+def launch_open(share0: torch.Tensor, key: int, transposed: bool,
+                b_share: torch.Tensor) -> torch.Tensor:
+    """The open by the CUDA kernel: b read through its strides, delta
+    contiguous in the view's shape."""
+    _check_open(share0, key, transposed, b_share)
+    if share0.device.type != "cuda":
+        raise ValueError("the seed_expand kernel takes a CUDA tensor")
+    shape = view_shape(share0, transposed)
+    delta = torch.empty(shape, dtype=torch.int64, device=share0.device)
+    if delta.numel() == 0:
+        return delta
+    rows, cols = ((1, 1) + shape)[-2:]
+    batches = delta.numel() // (rows * cols)
+    b3 = b_share.reshape(2, batches, rows, cols)  # a view unless b's batch dims do not merge
+    args = _OpenArgs(delta.data_ptr(), share0.data_ptr(), b3.data_ptr(), batches, rows, cols,
+                     *b3.stride(), key, int(b_share[0].is_contiguous()))
+    with torch.cuda.device(share0.device):
+        st = torch.cuda.current_stream(share0.device).cuda_stream
+        rc = _lib().seed_open_launch(ctypes.byref(args), int(transposed), st)
+    build.check(rc, "seed_expand open")
+    launches["open"] = launches.get("open", 0) + 1
+    return delta
+
+
+def open(share0: torch.Tensor, key: int, transposed: bool, b_share: torch.Tensor) -> torch.Tensor:
+    """delta of the Beaver open of a compressed operand: the kernel on a
+    CUDA tensor, the plain version on the CPU."""
+    if share0.device.type == "cuda":
+        return launch_open(share0, key, transposed, b_share)
+    return plain_open(share0, key, transposed, b_share)
 
 
 def reset_launches():

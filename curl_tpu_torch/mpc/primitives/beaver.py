@@ -33,6 +33,7 @@ from ... import ring
 from ...config import cfg
 from ...encoder import FixedPointEncoder
 from .arithmetic import ArithmeticSharedTensor
+from .compressed import SeedCompressedArithmetic
 from .party import lift, rank0
 
 
@@ -43,17 +44,37 @@ def _provider():
 
 
 def _raw(x: ArithmeticSharedTensor) -> ArithmeticSharedTensor:
-    """Scale-1 view (the IgnoreEncodings context of the reference)."""
+    """Scale-1 view (the IgnoreEncodings context of the reference); a
+    seed-compressed tensor stays compressed."""
+    if isinstance(x, SeedCompressedArithmetic):
+        return x.with_encoder(FixedPointEncoder(0))
     return ArithmeticSharedTensor(x.share, FixedPointEncoder(0))
+
+
+def _opens_compressed(op, y) -> bool:
+    """Whether a Beaver product opens y without expanding it: a matmul with
+    a seed-compressed y under the gate of the fused kernels (2 parties, the
+    TFP dealer; the Beaver protocol and passive security hold here)."""
+    return (op == "matmul" and isinstance(y, SeedCompressedArithmetic)
+            and comm.get_world_size() == 2 and _provider().NAME == "TFP")
 
 
 def _beaver_protocol(op, x, y):
     """z = c + eps*b + x*delta with one batched reveal (x = a + eps, so
-    this equals the reference's c + eps*b + a*delta + eps*delta)."""
+    this equals the reference's c + eps*b + a*delta + eps*delta). A
+    seed-compressed matmul operand y is opened in one pass
+    (``SeedCompressedArithmetic.open``): the same delta, rounds and bytes."""
     if cfg.mpc.active_security:
         raise NotImplementedError("active security is not ported yet")
     a, b, c = _provider().generate_additive_triple(x.shape, y.shape, op)
-    epsilon, delta = comm.all_sum([x.share - a.share, y.share - b.share])
+    if _opens_compressed(op, y):
+        # one batched reveal of eps and delta: eps's round and bytes are
+        # counted here, delta's bytes with them
+        epsilon = comm.all_sum(x.share - a.share)
+        delta = y.open(b.share)
+        comm.register_virtual("all_sum", delta.numel() * delta.element_size(), rounds=0)
+    else:
+        epsilon, delta = comm.all_sum([x.share - a.share, y.share - b.share])
     if op == "matmul":
         if x.ndim < 2 or y.ndim < 2:
             raise NotImplementedError("private matmul of a 1-D operand is not ported yet")
