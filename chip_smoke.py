@@ -2,7 +2,8 @@
 """Smoke run of curl_tpu_torch on one CUDA card: kernels, then the private
 2-party GPT-2 forward under the shipped configuration, under bench.py's
 kernel configuration, and with seed-compressed weights as bench.py builds
-them; then GPT-Neo 1.3B's geometry, seed-compressed.
+them; then GPT-Neo 1.3B's geometry, seed-compressed; then both compressed
+forwards captured as CUDA graphs by ``compile_parties``.
 
     python3 chip_smoke.py
 
@@ -79,11 +80,25 @@ without the final line):
               ring_mm_acc as multiples of their bounds, and any ring_mm
               signature above 10x its bound; each open signature's
               multiple of its bound
+  6. captured phase 4c's and 4d's models and tokens through
+              ``compile_parties(model.functional())``: the forward
+              captured once as a CUDA graph (launch counts and CommStats
+              reset just before the capture and read just after), replayed
+              at fresh seeds: capture time, the capture's launches by
+              kernel, replay latency (best of 6, host clock between
+              synchronizations) beside the same run's eager forward,
+              tokens/s, device busy of one replay, device memory of the
+              graph; a replay bit-identical to the eager forward under the
+              same keys from the same draw counter, the same seed twice
+              identical, two seeds different, the hidden state of each
+              within its bound, the capture's rounds, bytes and launches
+              by kernel equal to the eager forward's
 
 It prints one JSON line with every kernel's numbers (launches, time,
-plain time and bound of one phase 4c forward, the slice's main path, and
-under ``paths`` the same for each phase's forward), then the card's
-name and power limit, then ``{"ok": true, "device": {...}}`` as the last line.
+plain time and bound of one phase 4c forward, the slice's main path, under
+``paths`` the same for each phase's forward, and under ``captured`` the
+launches of each phase 6 capture), then the card's name and power limit,
+then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -148,7 +163,7 @@ FUSED_KNOBS = ("fused_mul", "fused_trunc", "fused_compare", "fused_max_step")
 BENCH_CONFIG = {"functions.max_method": "scan_reduction",
                 **{f"mpc.{knob}": "cuda" for knob in FUSED_KNOBS}}
 FUSED_OFF = {"functions.max_method": "scan_reduction"}
-FUSED_KEY = 0x5EED_F00D_0BAD_CAFE  # the fused checks' session key on fresh operands
+FUSED_KEY = 0x5EED_F00D_0BAD_CAFE  # the fused checks' session key (check_keys)
 # phase 3b: the path's element counts, and an odd one
 FUSED_SIZES = ((196_608, "GELU, 64 x 3072"), (3_216_448, "vocab softmax, 64 x 50257"),
                (49_152, "LayerNorm 64 x 768, attention 12 x 64 x 64"),
@@ -456,7 +471,8 @@ def check_launch_floor(dev):
     from curl_tpu_torch.kernels.philox import Segment
 
     one = torch.zeros(1, dtype=torch.int64, device=dev)
-    tiny = [Segment("draw", (DEALER_KEY,), c, 64) for c in (1, 2)]
+    dealer = check_keys()["dealer"]
+    tiny = [Segment("draw", dealer, c, 64) for c in (1, 2)]
     for name, fn in (("a one-element torch add_", lambda: one.add_(1)),
                      ("a philox group of 2 x 64 elements",
                       lambda: philox.philox_group(tiny, dev))):
@@ -493,20 +509,40 @@ RING_KEYS = (0x0123456789ABCDEF, 0x0FEDCBA987654321)
 DEALER_KEY = 0x00C0FFEE0DDBA11
 
 
+def check_keys() -> dict:
+    """Make the checks' keys the session's streams (``random.set_keys``):
+    RING_KEYS the two parties' ring seeds, DEALER_KEY the dealer's and
+    FUSED_KEY the fused kernels'. The checks name them by the session key
+    table's slots, as the path's launches do (``random.stream_ref``,
+    ``random.fused_key``): {"ring", "ring0", "ring1", "dealer", "fused"}."""
+    from curl_tpu_torch import random as crandom
+
+    keys = crandom.make_party_keys(SEED, len(RING_KEYS))
+    keys.update(next=list(RING_KEYS), prev=[RING_KEYS[-1], RING_KEYS[0]], dealer=[DEALER_KEY],
+                fused=[FUSED_KEY])
+    crandom.set_keys(keys)
+    ring = crandom.stream_ref("next")
+    return dict(ring=ring, ring0=crandom.TABLE.ref(ring.slot), ring1=crandom.TABLE.ref(ring.slot + 1),
+                dealer=crandom.stream_ref("dealer"), fused=crandom.fused_key())
+
+
 def provider_groups(dev, gen):
     """Each TFP provider call's grouped launches at the path's sizes, on
-    fresh keys and plaintexts: {name: [segments]}."""
+    the checks' keys and fresh plaintexts: {name: [segments]}."""
     from curl_tpu_torch.kernels.philox import Segment
 
+    keys = check_keys()
+    ring, dealer = keys["ring"], keys["dealer"]
+
     def fresh(n, bits, c, how="add", emit=False):
-        return Segment("fresh", RING_KEYS, 100 + c, n, how=how, dealer=DEALER_KEY,
-                       draw_counter=c, draw_kbits=bits, emit=emit)
+        return Segment("fresh", ring, 100 + c, n, how=how, dealer=dealer, draw_counter=c,
+                       draw_kbits=bits, emit=emit)
 
     def share(n, c, how="add"):
-        return Segment("plain", RING_KEYS, 100 + c, n, how=how, plain=rand_i64(gen, (n,), dev))
+        return Segment("plain", ring, 100 + c, n, how=how, plain=rand_i64(gen, (n,), dev))
 
     def draw(n, c):
-        return Segment("draw", (DEALER_KEY,), c, n)
+        return Segment("draw", dealer, c, n)
 
     return {
         # a Linear's triple, (64, 768) @ (768, 3072): a and b, then c
@@ -525,15 +561,18 @@ def provider_groups(dev, gen):
         "B2A at 196608": [fresh(196608, 1, 14), fresh(196608, 1, 14, how="xor")],
         "LUT r, then r mod L and 2 masks at 49152": [draw(49152, 15)],
         "LUT shares at 49152": [share(49152, 16)] + [
-            Segment("zero", RING_KEYS, 117 + i, 49152) for i in range(2)],
+            Segment("zero", ring, 117 + i, 49152) for i in range(2)],
     }
 
 
 def random_segments(g, count, dev):
     """``count`` mixed segments from numpy generator ``g``: every kind,
-    additive and XOR, odd n and n = 1, rows 1-8, kbits 1, 20 and 64."""
+    additive and XOR, odd n and n = 1, rows 1-8, kbits 1, 20 and 64; their
+    random keys in slots of one key table of their own."""
+    from curl_tpu_torch.kernels.keys import KeyTable
     from curl_tpu_torch.kernels.philox import HOWS, MAX_ROWS, WHATS, Segment
 
+    table = KeyTable(count * (MAX_ROWS + 1))
     out = []
     for i in range(count):
         what = list(WHATS)[i % len(WHATS)]
@@ -547,9 +586,13 @@ def random_segments(g, count, dev):
             plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=n)).to(dev)
         elif what == "plain_lane":
             plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=(rows, n))).to(dev)
-        out.append(Segment(what, keys, int(g.integers(0, 2 ** 62)), n, how=how, kbits=kbits,
-                           src=int(g.integers(0, min(rows, 2))), plain=plain,
-                           dealer=int(g.integers(0, 2 ** 63)), draw_counter=i,
+        base = i * (MAX_ROWS + 1)
+        table.write(keys, base + 1)
+        counter, src = int(g.integers(0, 2 ** 62)), int(g.integers(0, min(rows, 2)))
+        table.write([int(g.integers(0, 2 ** 63))], base)
+        out.append(Segment(what, table.ref(base + 1, rows), counter, n, how=how, kbits=kbits,
+                           src=src, plain=plain,
+                           dealer=table.ref(base) if what == "fresh" else None, draw_counter=i,
                            draw_kbits=int(g.choice([1, 20, 64])),
                            emit=what == "fresh" and i % 2 == 1))
     return out
@@ -569,24 +612,30 @@ def _check_group(name, segments, dev):
     return got
 
 
+def _plain_keys(kw):
+    """``kw`` for plain_philox: the keys that the slots of kw["keys"] hold."""
+    return dict(kw, keys=list(kw["keys"].values()))
+
+
 def check_philox(dev, gen):
     from curl_tpu_torch.kernels import philox
 
-    ring_keys = list(RING_KEYS)
+    keys = check_keys()
+    ring = keys["ring"]
     for n in (768 * 50257, 1_000_003):
         plain_n = rand_i64(gen, (n,), dev)
         plain_lane = rand_i64(gen, (2, n), dev)
         args = {
-            "draw": dict(keys=[ring_keys[0]], kbits=64),
-            "draw_k20": dict(keys=[ring_keys[1]], kbits=20),
-            "przs": dict(keys=ring_keys),
-            "share": dict(keys=ring_keys, plain=plain_n, src=0),
-            "share_lane": dict(keys=ring_keys, plain=plain_lane, src=1),
+            "draw": dict(keys=keys["ring0"], kbits=64),
+            "draw_k20": dict(keys=keys["ring1"], kbits=20),
+            "przs": dict(keys=ring),
+            "share": dict(keys=ring, plain=plain_n, src=0),
+            "share_lane": dict(keys=ring, plain=plain_lane, src=1),
         }
         for label, kw in args.items():
             mode = label.split("_k")[0]
             got = philox.philox(mode, counter=77, n=n, device=dev, **kw)
-            want = philox.plain_philox(mode, counter=77, n=n, device=dev, **kw)
+            want = philox.plain_philox(mode, counter=77, n=n, device=dev, **_plain_keys(kw))
             if not torch.equal(got, want):
                 raise AssertionError(f"philox {label} n={n}: kernel != plain")
             if mode == "przs" and torch.count_nonzero(got.sum(0)) != 0:
@@ -594,9 +643,10 @@ def check_philox(dev, gen):
         log(f"[kernels] philox draw/przs/share/share_lane n={n}: bit-exact vs plain, "
             "PRZS sums to zero")
         if n == 768 * 50257:  # the weight sharing of the LM head, 2-D on the TPU
-            kw = dict(keys=ring_keys, plain=plain_n, src=0)
+            kw = dict(keys=ring, plain=plain_n, src=0)
             ms = cuda_ms(lambda: philox.philox("share", counter=5, n=n, **kw), 10)
-            plain_ms = cuda_ms(lambda: philox.plain_philox("share", counter=5, n=n, **kw), 2)
+            plain_ms = cuda_ms(lambda: philox.plain_philox("share", counter=5, n=n,
+                                                           **_plain_keys(kw)), 2)
             b, by = bound((2 * n + n) * 8, 2 * (n + 1) // 2 * PHILOX_OPS)
             log(f"[kernels] philox share (2, {n}): {ms:.3f} ms (plain {plain_ms:.3f} ms, "
                 f"bound {b:.4f} ms by {by})")
@@ -604,16 +654,16 @@ def check_philox(dev, gen):
     # the 1-D form (pallas_przs.py:60 on the TPU) at the GELU's element count
     n = 64 * 3072
     plain_n = rand_i64(gen, (n,), dev)
-    for mode, kw in (("draw", dict(keys=[ring_keys[0]])),
-                     ("share", dict(keys=ring_keys, plain=plain_n, src=0))):
+    for mode, kw in (("draw", dict(keys=keys["ring0"])),
+                     ("share", dict(keys=ring, plain=plain_n, src=0))):
         kw = dict(kw, counter=6, n=n, device=dev)
         got = philox.philox(mode, **kw)
-        if not torch.equal(got, philox.plain_philox(mode, **kw)):
+        if not torch.equal(got, philox.plain_philox(mode, **_plain_keys(kw))):
             raise AssertionError(f"philox 1-D {mode} n={n}: kernel != plain")
         ms = cuda_ms(lambda: philox.philox(mode, **kw), 20)
-        plain_ms = cuda_ms(lambda: philox.plain_philox(mode, **kw), 3)
+        plain_ms = cuda_ms(lambda: philox.plain_philox(mode, **_plain_keys(kw)), 3)
         b, by = bound(got.numel() * 8 + (n * 8 if mode == "share" else 0),
-                      len(kw["keys"]) * (n + 1) // 2 * PHILOX_OPS)
+                      kw["keys"].rows * (n + 1) // 2 * PHILOX_OPS)
         log(f"[kernels] philox 1-D {mode} ({got.shape[0]}, {n}): bit-exact vs plain; {ms:.4f} ms "
             f"(plain {plain_ms:.3f} ms, bound {b:.5f} ms by {by})")
 
@@ -671,22 +721,26 @@ def fused_spec(kind, sig):
 
 
 def fused_run(spec, ops, count, plain=False):
-    """One launch of the spec's kernel (or its plain version) on ``ops``."""
+    """One launch of the spec's kernel (or its plain version) on ``ops``,
+    keyed by the session's fused slot, as the path's launches are (it holds
+    FUSED_KEY once check_keys has run)."""
+    from curl_tpu_torch import random as crandom
     from curl_tpu_torch.kernels import fused_mul, max_step
 
+    key = crandom.fused_key()
     kind = spec["kind"]
     if kind == "fused_mul":
         fn = fused_mul.plain if plain else fused_mul.launch
         y = ops[1] if len(ops) > 1 else None
-        return fn(spec["op"], spec["trunc"], spec["m"], ops[0], y, FUSED_KEY, count)
+        return fn(spec["op"], spec["trunc"], spec["m"], ops[0], y, key, count)
     if kind == "square_chain":
         fn = fused_mul.plain_square_chain if plain else fused_mul.launch_square_chain
-        return fn(spec["trunc"], spec["m"], ops[0], spec["steps"], FUSED_KEY, count)
+        return fn(spec["trunc"], spec["m"], ops[0], spec["steps"], key, count)
     name = {"fold": "fold_chain", "butterfly": "butterfly_chain"}.get(kind, kind)
     fn = getattr(max_step, ("plain_" if plain else "launch_") + name)
     if kind == "butterfly":
-        return fn(ops[0], spec["steps"], FUSED_KEY, count)
-    return fn(*ops, FUSED_KEY, count)
+        return fn(ops[0], spec["steps"], key, count)
+    return fn(*ops, key, count)
 
 
 def fused_work(spec):
@@ -758,6 +812,7 @@ def check_fused(dev, gen):
     its plain version on fresh contiguous (2, n) operands; then element-pair
     fused_mul on other layouts and the chains at the paths' sizes; timed
     (warm)."""
+    check_keys()
     count = 0
     cases = []
     for n, label in FUSED_SIZES:
@@ -1160,17 +1215,19 @@ PORT_KERNEL_NAMES = ("ring_mm_kernel", "philox_group_kernel", "fused_mul_kernel"
                      "seed_expand_kernel", "open_flat_kernel", "open_tile_kernel")
 
 
-def profile_forward(model, xe, best_s, tag="profile", top=10):
-    """One more forward under torch.profiler: the device's busy time (sum
-    of kernel self time) against the best unprofiled latency, the kernels
-    that take the most of it and, for each of those that is not the
-    port's, the PyTorch ops (with their input shapes) that launched it."""
+def profile_forward(model, xe, best_s, tag="profile", top=10, call=None):
+    """One more forward under torch.profiler (``call()`` in place of
+    ``model(xe)`` where given): the device's busy time (sum of kernel self
+    time) against the best unprofiled latency, the kernels that take the
+    most of it and, for each of those that is not the port's, the PyTorch
+    ops (with their input shapes) that launched it. Returns the busy ms
+    (None where the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        model(xe)
+        model(xe) if call is None else call()
         torch.cuda.synchronize()
     # device-side events only: a host op's device time repeats its kernels'
     events = [e for e in prof.key_averages()
@@ -1178,7 +1235,7 @@ def profile_forward(model, xe, best_s, tag="profile", top=10):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
         log(f"[{tag}] the profiler recorded no device time: device busy share not measured")
-        return
+        return None
     log(f"[{tag}] device busy {busy_ms:.1f} ms per forward, "
         f"{busy_ms / (best_s * 1e3):.1%} of the best unprofiled latency {best_s * 1e3:.1f} ms; "
         f"{sum(e.count for e in events)} kernel launches")
@@ -1205,6 +1262,7 @@ def profile_forward(model, xe, best_s, tag="profile", top=10):
                 port[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
     log(f"[{tag}] the port's kernels in the forward: " + ", ".join(
         f"{name} {ms:.2f} ms / {n}" for name, (ms, n) in port.items()))
+    return busy_ms
 
 
 @contextlib.contextmanager
@@ -1645,6 +1703,8 @@ def run_compressed(fw, bench_stats, gen):
         failures += open_checks("compressed", model, res)
         failures += check_open_routes("compressed", model, gen)
         profile_composable("compressed", model, xe, res["best_s"])
+    res.update(model=model, xe=xe, ref=fw["ref_hidden"], config=BENCH_CONFIG,
+               bound=HIDDEN_STATE_SCALE_FREE_L2)
     sound = hidden_stats(res["hidden"], fw["ref_hidden"])
     ratio = resident / materialized
     want_rounds = bench_stats["rounds"] + 3 * (HEAD_CHUNKS - 1)
@@ -1706,7 +1766,8 @@ def run_neo(dev, gen):
         f"{skip_err[j]:.5f} (block {j}), max {max(skip_err):.5f}")
 
     ct.init(world_size=2, seed=SEED)
-    with cfg.temp_override(dict(BENCH_CONFIG, **{"models.head_chunk_positions": SEQ})):
+    config = dict(BENCH_CONFIG, **{"models.head_chunk_positions": SEQ})
+    with cfg.temp_override(config):
         model, resident = build_timed("neo", **geom, seq_len=SEQ, head_vocab_chunks=HEAD_CHUNKS,
                                       state_dict=sd)
         chunked = sum(isinstance(m, ChunkedLinear) for m in model.blocks.modules())
@@ -1731,9 +1792,164 @@ def run_neo(dev, gen):
     if fault["scale_free_l2"] <= NEO_SCALE_FREE_L2:
         failures.append(f"neo planted fault ({fmt_stats(fault)}) passes the bound "
                         f"{NEO_SCALE_FREE_L2}")
-    del model
-    torch.cuda.empty_cache()
+    # phase 6 captures this model's forward
+    res.update(model=model, xe=xe, ref=ref, config=config, bound=NEO_SCALE_FREE_L2)
     return res, failures
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the forward captured as a CUDA graph (compile_parties)
+# ---------------------------------------------------------------------------
+
+# what phase 6 keeps of a phase 4c or 4d run
+CAPTURE_KEYS = ("model", "xe", "ref", "config", "bound", "stats", "best_s")
+# the capture's seed, then the replays' (each a fresh seed)
+CAPTURE_SEED = 101
+REPLAYS = 6
+
+
+def run_captured(path, res):
+    """Phase 6: the model's forward through ``compile_parties(
+    model.functional())``, with its final-LayerNorm hidden state as a
+    second output: the capture (counts reset just before it and read just
+    after), replays at fresh seeds, the same forward eagerly under the
+    capture seed's keys and under the first replay seed's, each from the
+    capture's draw counter, and the tokens at another address (read
+    through a static buffer after one capture anew)."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch import random as crandom
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.mpc.mpc import MPCTensor
+    from curl_tpu_torch.mpc.primitives.arithmetic import ArithmeticSharedTensor
+
+    tag = f"captured {path}"
+    model, xe = res["model"], res["xe"]
+    apply_fn, params = model.functional()
+
+    def forward(p, x):
+        seen = []
+        hook = model.ln.register_forward_hook(lambda mod, inp, out: seen.append(out))
+        try:
+            probs = apply_fn(p, x)
+        finally:
+            hook.remove()
+        return probs, seen[-1]
+
+    def hidden_of(out):
+        probs, hidden = out
+        return hidden.get_plain_text().reshape(tuple(probs.shape[:-1]) + (-1,))
+
+    def eager_at(seed):
+        """The forward eagerly under ``seed``'s keys from the capture's
+        draw counter: (outputs, host seconds)."""
+        resume = crandom.counter()
+        crandom.set_counter(step.counter)
+        with ct.parallel.mpc_context(crandom.make_party_keys(seed, 2), 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = forward(params, xe)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        crandom.set_counter(resume)
+        return out, secs
+
+    def same(a, b):
+        return all(torch.equal(u.share, v.share) for u, v in zip(a, b))
+
+    def elsewhere(x):
+        """The same tokens at another address."""
+        return MPCTensor(ArithmeticSharedTensor(x._tensor.share.clone(), x._tensor.encoder),
+                         x.ptype)
+
+    step = ct.compile_parties(forward, 2)
+    with cfg.temp_override(res["config"]):
+        reset_launches()
+        ct.reset_communication_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        first = step(CAPTURE_SEED, params, xe)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches, by_op, _ = read_launches()
+        stats = ct.get_communication_stats()
+        resident = torch.cuda.memory_allocated() - held
+        lat, other = [], None
+        for i in range(REPLAYS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(CAPTURE_SEED + 1 + i, params, xe)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            other = out if other is None else other
+        again = step(CAPTURE_SEED, params, xe)
+        after = ct.get_communication_stats()
+        peak = torch.cuda.max_memory_allocated() - held
+
+        # the same forward eagerly, under the capture seed's keys from the
+        # capture's draw counter, counted alone; then uncounted under the
+        # first replay seed's
+        reset_launches()
+        ct.reset_communication_stats()
+        eager, eager_s = eager_at(CAPTURE_SEED)
+        eager_launches, eager_by_op, _ = read_launches()
+        eager_stats = ct.get_communication_stats()
+        eager_other, _ = eager_at(CAPTURE_SEED + 1)
+        best = min(lat)
+        busy = profile_forward(None, None, best, tag=f"profile, {tag}", top=6,
+                               call=lambda: step(CAPTURE_SEED + REPLAYS + 1, params, xe))
+        # the tokens at another address: one capture anew, then a copy a call
+        captures = step.captures
+        moved = [step(CAPTURE_SEED + 1, params, elsewhere(xe)) for _ in range(2)]
+        moved_captures = step.captures - captures
+
+    log(f"[{tag}] first call {first_s:.2f} s: warm-up forward {step.warmup_s:.2f} s, capture "
+        f"and instantiation {step.capture_s:.2f} s, one replay; {captures} capture; the graph "
+        f"keeps {step.constants} public constants")
+    log(f"[{tag}] the capture's launches {launches}; fused_mul and max_step by op {by_op}")
+    log(f"[{tag}] replay latencies {', '.join(f'{x:.4f}' for x in lat)} s: best {best:.4f} s, "
+        f"{SEQ / best:.1f} tokens/s; the eager forward beside it {eager_s:.4f} s (phase "
+        f"{'4c' if path == 'compressed' else '4d'}'s best {res['best_s']:.4f} s)")
+    log(f"[{tag}] device memory: the graph's pool and buffers hold {resident / 2**30:.3f} GiB "
+        f"after the capture; peak {peak / 2**30:.3f} GiB above the {held / 2**30:.2f} GiB "
+        f"held before it")
+    log(f"[{tag}] the capture: {stats['rounds']} rounds, {stats['bytes']} bytes; the eager "
+        f"forward: {eager_stats['rounds']}, {eager_stats['bytes']}; replays counted "
+        f"{after['rounds'] - stats['rounds']} more rounds")
+    checks = {
+        "replay at the capture seed bit-identical to the eager forward at its keys and counter":
+            same(first, eager),
+        "replay at another seed bit-identical to the eager forward at that seed's keys":
+            same(other, eager_other),
+        "the same seed twice bit-identical": same(first, again),
+        "two seeds different shares": not torch.equal(first[0].share, other[0].share),
+        "tokens at another address: one capture anew, then the same shares each call":
+            moved_captures == 1 and all(same(m, other) for m in moved),
+        "rounds and bytes of the capture equal the eager forward's and phase "
+        f"{'4c' if path == 'compressed' else '4d'}'s":
+            (stats["rounds"], stats["bytes"]) == (eager_stats["rounds"], eager_stats["bytes"])
+            == (res["stats"]["rounds"], res["stats"]["bytes"]) and after == stats,
+        "the capture launched every kernel the eager forward launched, as often":
+            (launches, by_op) == (eager_launches, eager_by_op)
+            and all(n > 0 for n in launches.values()) and not unlaunched_chains(by_op),
+    }
+    for seed, out in ((CAPTURE_SEED, first), (CAPTURE_SEED + 1, other)):
+        st = hidden_stats(hidden_of(out), res["ref"])
+        log(f"[{tag}] final-LN hidden at seed {seed}: {fmt_stats(st)}")
+        checks[f"hidden state at seed {seed} within max {HIDDEN_STATE_ATOL}, scale-free rel L2 "
+               f"{res['bound']}"] = (np.isfinite(hidden_of(out)).all()
+                                     and st["max_abs"] <= HIDDEN_STATE_ATOL
+                                     and st["scale_free_l2"] <= res["bound"])
+    for name, ok in checks.items():
+        log(f"[{tag}] {name}: {'held' if ok else 'FAILED'}")
+    failures = [f"{tag}: {name}" for name, ok in checks.items() if not ok]
+    if failures:
+        log(f"[{tag}] eager launches {eager_launches}, by op {eager_by_op}")
+    chains = {name: sum(n for t, n in by_op.items() if is_tag(t))
+              for name, is_tag in CHAIN_TAGS.items()}
+    return dict(launches=launches, chains=chains, best_s=best, eager_s=eager_s, busy_ms=busy,
+                capture_s=step.capture_s, peak=peak), failures
 
 
 # ---------------------------------------------------------------------------
@@ -1841,20 +2057,24 @@ def philox_calls(sig):
 
 
 def philox_segments(sig, dev, gen):
-    """Segments of a recorded signature on fresh keys and plaintexts."""
+    """Segments of a recorded signature on the checks' keys, named by the
+    session key table's slots as the path names them (the ring seeds, or
+    one slot a row from the first), and fresh plaintexts."""
+    from curl_tpu_torch import random as crandom
     from curl_tpu_torch.kernels.philox import Segment
 
+    keys = check_keys()
     segments = []
-    for i, (what, how, keys, n, kbits, src, draw_kbits, emit) in enumerate(sig):
+    for i, (what, how, rows, n, kbits, src, draw_kbits, emit) in enumerate(sig):
         plain = None
         if what == "plain":
             plain = rand_i64(gen, (n,), dev)
         elif what == "plain_lane":
-            plain = rand_i64(gen, (keys, n), dev)
+            plain = rand_i64(gen, (rows, n), dev)
         segments.append(Segment(
-            what, tuple(0x0123456789ABCDEF + 7919 * (k + 8 * i) for k in range(keys)), 3 + i, n,
-            how=how, kbits=kbits, src=src, plain=plain, dealer=DEALER_KEY, draw_counter=50 + i,
-            draw_kbits=draw_kbits, emit=emit))
+            what, crandom.TABLE.ref(keys["ring"].slot, rows), 3 + i, n, how=how, kbits=kbits,
+            src=src, plain=plain, dealer=keys["dealer"] if what == "fresh" else None,
+            draw_counter=50 + i, draw_kbits=draw_kbits, emit=emit))
     return segments
 
 
@@ -1911,6 +2131,7 @@ def time_seed(sig, dev, gen):
 
 def time_signatures(paths, dev, gen):
     """Every launch signature any path recorded, once: {kind: {sig: row}}."""
+    check_keys()  # the phases' sessions have written the table since phase 3
     union = {kind: {} for kind in KINDS}
     for calls in paths.values():
         for kind, sigs in calls.items():
@@ -2121,12 +2342,12 @@ def run_paths(dev, gen):
     compressed, comp_failures = run_compressed(forward, bench_stats, gen)
     failures += comp_failures
     paths["compressed"] = (compressed["calls"], compressed["launches"], compressed["by_op"])
-    del forward, compressed
+    compressed = {k: compressed[k] for k in CAPTURE_KEYS}  # phase 6's
+    del forward
     torch.cuda.empty_cache()
     neo, neo_failures = run_neo(dev, gen)
     failures += neo_failures
     paths["neo"] = (neo["calls"], neo["launches"], neo["by_op"])
-    del neo
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
@@ -2141,6 +2362,16 @@ def run_paths(dev, gen):
             f"{tag} {n}" for tag, n in sorted(by_op.items()) if "+" in tag)
             + f"; max_step launches {launches['max_step']}: " + ", ".join(
             f"{tag} {by_op.get(tag, 0)}" for tag in MAX_STEP_TAGS))
+
+    # phase 6: the compressed GPT-2 and GPT-Neo forwards through
+    # compile_parties, captured once and replayed; each model freed after
+    captured = {}
+    for p, res in (("compressed", compressed), ("neo", neo)):
+        captured[p], cap_failures = run_captured(p, res)
+        failures += cap_failures
+        res.clear()
+        torch.cuda.empty_cache()
+    del compressed, neo
 
     def counted(p, name):
         """The launches one forward of path p counted for a JSON entry."""
@@ -2161,7 +2392,9 @@ def run_paths(dev, gen):
             library_ms=None, part_of=part_of,
             shape=f"one phase 4c forward: every launch, {main['signatures']} signatures",
             paths={p: dict(t[name], launches=counted(p, name))
-                   for p, t in totals.items() if name in t}))
+                   for p, t in totals.items() if name in t},
+            captured={p: c["launches"].get(name, c["chains"].get(name))
+                      for p, c in captured.items()}))
     return kernels, failures
 
 if __name__ == "__main__":

@@ -15,6 +15,10 @@ PyTorch and hand-written CUDA kernels for one NVIDIA Hopper card:
     x = ct.cryptensor([1.0, -2.0])
     x.gelu().get_plain_text()
 
+    apply_fn, params = model.functional()
+    step = ct.compile_parties(apply_fn, 2)   # a captured CUDA graph
+    out = step(seed, params, xe)              # fresh randomness per seed
+
 The package imports no JAX and nothing of ``curl_tpu``.
 """
 
@@ -32,6 +36,8 @@ from . import functions  # noqa: F401  (installs ops on MPCTensor)
 from . import nn  # noqa: F401
 from . import models  # noqa: F401
 from .nn import module as _nn_module
+from . import parallel  # noqa: F401
+from .parallel import Public, compile_parties, run_parties  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -54,6 +60,8 @@ def init(world_size: int = 2, seed: int = 0, device=None):
     comm.set_device(device)
     comm.set_world_size(world_size)
     _rng.set_keys(_rng.make_party_keys(seed, world_size))
+    if comm.get_device().type == "cuda":
+        _rng.TABLE.tensor(comm.get_device())  # the key table's device copy
     _rng.reset_count()
     _nn_module.set_init_seed(seed)
 

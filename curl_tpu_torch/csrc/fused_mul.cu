@@ -29,7 +29,10 @@
 // mask over x's own elements, `b` and its mask over y's, the rest over the
 // output. A broadcast operand is read in place (memory stride 0) and opened
 // at its own size. Nothing depends on the launch geometry, so the kernel
-// and its plain version agree bit for bit.
+// and its plain version agree bit for bit. `key` points at the session's
+// `fused` stream in its slot of the session key table (kernels/keys.py),
+// which a thread reads once, so a launch captured in a CUDA graph draws
+// from the key the table holds at replay.
 //
 // What bounds it on an H100: per output element a mul+egk pass reads 4
 // shares and writes 2 (48 bytes: 0.014 ns at 3.35 TB/s) and needs 11 draws,
@@ -72,7 +75,8 @@ struct FusedMulArgs {
   long long size[kMaxDims];
   int nd, op, trunc, m, steps;
   long long n;
-  u64 key, count;
+  u64 count;
+  const u64* key;  // the key's slot in the session key table
 };
 
 namespace {
@@ -145,18 +149,17 @@ __device__ __forceinline__ void load_pair(const FusedMulArgs& a, const Operand& 
 
 // Draw `slot` at the pair's own indices idx[0], idx[1] (x's or y's space):
 // one Philox call where both fall into it, two where they do not.
-__device__ __forceinline__ void draw_at(const FusedMulArgs& a, u64 count, int slot,
-                                        const long long idx[2], u64 d[2]) {
+__device__ __forceinline__ void draw_at(u64 key, u64 count, int slot, const long long idx[2],
+                                        u64 d[2]) {
   const u64 j0 = static_cast<u64>(idx[0]) >> 1, j1 = static_cast<u64>(idx[1]) >> 1;
-  const uint4 o = philox_slot_pair(a.key, count, slot, j0);
+  const uint4 o = philox_slot_pair(key, count, slot, j0);
   d[0] = philox_word(o, idx[0] & 1);
-  d[1] = philox_word(j1 == j0 ? o : philox_slot_pair(a.key, count, slot, j1), idx[1] & 1);
+  d[1] = philox_word(j1 == j0 ? o : philox_slot_pair(key, count, slot, j1), idx[1] & 1);
 }
 
 // Draw `slot` over the output: one Philox call, both words.
-__device__ __forceinline__ void draw_out(const FusedMulArgs& a, u64 count, int slot, u64 j,
-                                         u64 d[2]) {
-  const uint4 o = philox_slot_pair(a.key, count, slot, j);
+__device__ __forceinline__ void draw_out(u64 key, u64 count, int slot, u64 j, u64 d[2]) {
+  const uint4 o = philox_slot_pair(key, count, slot, j);
   d[0] = philox_word(o, false);
   d[1] = philox_word(o, true);
 }
@@ -165,6 +168,7 @@ template <int OP, int TRUNC>
 __global__ void __launch_bounds__(kThreads) fused_mul_kernel(FusedMulArgs a, u64* __restrict__ out) {
   const long long pairs = (a.n + 1) >> 1;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const u64 key = *a.key;
   for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; j < pairs;
        j += stride) {
     const long long i0 = 2 * j;
@@ -179,11 +183,11 @@ __global__ void __launch_bounds__(kThreads) fused_mul_kernel(FusedMulArgs a, u64
       int slot = 0;
       if (OP == 0) {  // mul
         u64 av[2], bv[2], sa[2], sb[2], sc[2];
-        draw_at(a, count, 0, xi, av);
-        draw_at(a, count, 1, yi, bv);
-        draw_at(a, count, 2, xi, sa);
-        draw_at(a, count, 3, yi, sb);
-        draw_out(a, count, 4, j, sc);
+        draw_at(key, count, 0, xi, av);
+        draw_at(key, count, 1, yi, bv);
+        draw_at(key, count, 2, xi, sa);
+        draw_at(key, count, 3, yi, sb);
+        draw_out(key, count, 4, j, sc);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const u64 cv = av[h] * bv[h];
@@ -198,9 +202,9 @@ __global__ void __launch_bounds__(kThreads) fused_mul_kernel(FusedMulArgs a, u64
         slot = 5;
       } else if (OP == 1) {  // square
         u64 r[2], sr[2], sr2[2];
-        draw_out(a, count, 0, j, r);
-        draw_out(a, count, 1, j, sr);
-        draw_out(a, count, 2, j, sr2);
+        draw_out(key, count, 0, j, r);
+        draw_out(key, count, 1, j, sr);
+        draw_out(key, count, 2, j, sr2);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const u64 r2 = r[h] * r[h];
@@ -221,12 +225,12 @@ __global__ void __launch_bounds__(kThreads) fused_mul_kernel(FusedMulArgs a, u64
       if (TRUNC == 1) {  // EGK+20 Fig. 10, l = 62
         const int m = a.m;
         u64 r[2], s_r[2], rp[2], s_rp[2], b[2], s_b[2];
-        draw_out(a, count, slot, j, r);
-        draw_out(a, count, slot + 1, j, s_r);
-        draw_out(a, count, slot + 2, j, rp);
-        draw_out(a, count, slot + 3, j, s_rp);
-        draw_out(a, count, slot + 4, j, b);
-        draw_out(a, count, slot + 5, j, s_b);
+        draw_out(key, count, slot, j, r);
+        draw_out(key, count, slot + 1, j, s_r);
+        draw_out(key, count, slot + 2, j, rp);
+        draw_out(key, count, slot + 3, j, s_rp);
+        draw_out(key, count, slot + 4, j, b);
+        draw_out(key, count, slot + 5, j, s_b);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const u64 r_sh0 = s_r[h] + low_bits(r[h], kL - m), r_sh1 = 0ull - s_r[h];
@@ -293,7 +297,7 @@ extern "C" int fused_mul_launch(const FusedMulArgs* args, long long* out, void* 
   if (a.nd < 0 || a.nd > kMaxDims || a.n < 0 || a.n > 0x7FFFFFFFll || a.op < 0 || a.op > 2 ||
       a.trunc < 0 || a.trunc > 2 || a.m < 0 || a.m >= (a.trunc == 1 ? kL : 63) ||
       (a.op == 2 && a.trunc != 1) || a.steps < 1 || (a.steps > 1 && a.op != 1) ||
-      (reinterpret_cast<unsigned long long>(out) & 15))
+      a.key == nullptr || (reinterpret_cast<unsigned long long>(out) & 15))
     return cudaErrorInvalidValue;
   if (a.n == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);

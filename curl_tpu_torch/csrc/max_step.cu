@@ -31,7 +31,10 @@
 // version kernels/max_step.py numbers them) for word k is word k & 1 of
 // philox_slot_pair(key, count, s, k >> 1) (csrc/philox.cuh); an rbit()
 // slot gives bit h of that draw to half h. Nothing depends on the launch
-// geometry, so kernel and plain version agree bit for bit.
+// geometry, so kernel and plain version agree bit for bit. `key` points at
+// the session's `fused` stream in its slot of the session key table
+// (kernels/keys.py), which each thread reads once, so a launch captured in
+// a CUDA graph draws from the key the table holds at replay.
 //
 // What bounds it on an H100: a step word (two elements) reads 8 shares and
 // writes 4 (96 bytes: 0.029 ns at 3.35 TB/s) but needs 71 draws, 35.5
@@ -98,8 +101,9 @@ struct StepArgs {
   long long size[kMaxDims];
   int nd, steps;
   long long n, b_step;      // b_step: elements between the chunks of a fold
-  u64 key, count;
+  u64 count;
   int dense;                // ltz: a is contiguous over its per-party dims
+  const u64* key;           // the key's slot in the session key table
 };
 
 namespace {
@@ -328,6 +332,7 @@ __device__ __forceinline__ void words_body(const StepArgs& a, u64* __restrict__ 
   const bool live = threadIdx.x < kChunk && k < m;
   const long long e[2] = {k, k + m};
   const bool has1 = live && k + m < a.n;
+  const u64 key = *a.key;
   u64 c0[2] = {0, 0}, c1[2] = {0, 0}, r0[2] = {0, 0}, r1[2] = {0, 0};
   long long ob[2] = {0, 0};
 #pragma unroll
@@ -349,7 +354,7 @@ __device__ __forceinline__ void words_body(const StepArgs& a, u64* __restrict__ 
       }
     }
     if (g > 0) __syncthreads();  // the previous step's circuits have read the table
-    draw_stage<kSlotsStep>(sd, a.key, a.count + g, k0);
+    draw_stage<kSlotsStep>(sd, key, a.count + g, k0);
     __syncthreads();
     if (live) {
       u64 z0[2], z1[2];
@@ -398,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 4) ltz_pair_kernel(StepArgs a,
       }
     }
   }
-  PairDraws R{a.key, a.count, static_cast<u64>(j), 0};
+  PairDraws R{*a.key, a.count, static_cast<u64>(j), 0};
   u64 z0[2][2], z1[2][2];
   sign_circuit<false, 2>(d0, d1, R, z0, z1);
 #pragma unroll
@@ -426,6 +431,7 @@ __device__ __forceinline__ void butterfly_body(const StepArgs& a, u64* __restric
   const int words = static_cast<int>(min(static_cast<long long>(P), half - rho0)) * w;
   const int W = P * w;
   const long long k0 = rho0 * w;
+  const u64 key = *a.key;
   auto at = [&](int buf, int party, int h, int q) -> u64& {
     return xs[((buf * 2 + party) * 2 + h) * W + q];
   };
@@ -444,7 +450,7 @@ __device__ __forceinline__ void butterfly_body(const StepArgs& a, u64* __restric
       // the previous chunk's circuits have read the table, and the loads
       // (g = 0) or the previous step's writes are in
       __syncthreads();
-      draw_stage<kSlotsStep>(sd, a.key, a.count + g, k0 + q0);
+      draw_stage<kSlotsStep>(sd, key, a.count + g, k0 + q0);
       __syncthreads();
       const int q = q0 + static_cast<int>(threadIdx.x);
       if (threadIdx.x < kChunk && q < words) {
@@ -491,7 +497,7 @@ __global__ void __launch_bounds__(kThreads, 4) step_kernel(StepArgs a, u64* __re
 
 int check_args(const StepArgs& a, int mode) {
   if (a.nd < (mode == kButterfly ? 1 : 0) || a.nd > kMaxDims || a.n < 0 || a.n > 0x7FFFFFFFll ||
-      a.steps < 1 || (mode == kLtz && a.steps != 1))
+      a.steps < 1 || (mode == kLtz && a.steps != 1) || a.key == nullptr)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }

@@ -42,7 +42,15 @@
 // loads) and strides over the segment's pairs; each thread keeps kPairs
 // pairs in flight, so that independent Philox calls hide each other's ten
 // dependent rounds. The segment table travels in the kernel's parameters
-// (__grid_constant__, at most 2.5 KB): no host-to-device copy a launch.
+// (__grid_constant__, at most 1.6 KB): no host-to-device copy a launch.
+//
+// Keys. A segment names its rows' keys (and a fresh draw's dealer key) by
+// slots of a key table, a small int64 tensor on the device that the host
+// writes in place (kernels/keys.py). Thread r < rows of each block loads
+// row r's key, and thread kMaxRows the dealer's, into shared memory once;
+// every draw of the block reads them there. So a launch captured in a CUDA
+// graph draws from whatever keys the table holds when the graph is
+// replayed, and one captured forward serves every seed.
 //
 // What bounds it: the bytes written (8 per output element, plus 8 per
 // plaintext element read) and the Philox rounds, one call per pair and per
@@ -88,9 +96,7 @@ struct Segment {
   unsigned long long* value;         // emit: (n,), v itself
   const unsigned long long* plain;   // kPlain: (n,); kPlainLane: (rows, n)
   long long n;
-  unsigned long long keys[kMaxRows];
   unsigned long long counter;        // the draw's, or the sharing streams'
-  unsigned long long dealer;         // kFresh: the dealer's seed
   unsigned long long draw_counter;   // kFresh: the dealer draw's counter
   int block0;                        // first block of the segment
   int blocks;
@@ -101,13 +107,16 @@ struct Segment {
   int draw_kbits;                    // kFresh: bits of v
   int src;
   int emit;
+  int slot;                          // table slot of row 0's key (rows consecutive)
+  int dealer_slot;                   // kFresh: table slot of the dealer's key
 };
 
 // A launch's segment table, at most N segments: the kernel is instantiated
 // for N = 1, 2, 8 and 16, so that a small group's launch carries a small
-// parameter block (0.3 KB for two segments, 2.5 KB for sixteen).
+// parameter block (0.2 KB for two segments, 1.6 KB for sixteen).
 template <int N>
 struct Group {
+  const unsigned long long* table;  // the key table the slots index
   int block0[N];  // first block of each segment, for the search
   int count;
   Segment seg[N];
@@ -188,19 +197,19 @@ __device__ __forceinline__ ulonglong2 share_of(ulonglong2 prev, ulonglong2 cur, 
 // ring stream twice (as party 0's prev and as the last party's cur), so
 // that only prev and cur stay live.
 template <int ROWS>
-__device__ __forceinline__ void share_step(const Segment& sg, const Step& st,
-                                           const ulonglong2 (&v)[kPairs]) {
+__device__ __forceinline__ void share_step(const Segment& sg, const unsigned long long* keys,
+                                           const Step& st, const ulonglong2 (&v)[kPairs]) {
   const long long n = sg.n;
   const bool xs = sg.xor_share;
   const int shift = 64 - sg.kbits;
   const int rows = ROWS ? ROWS : sg.rows;
   ulonglong2 prev[kPairs];
-  const unsigned long long last = step_key(sg.keys[rows - 1]);
+  const unsigned long long last = step_key(keys[rows - 1]);
 #pragma unroll
   for (int u = 0; u < kPairs; ++u) prev[u] = stream_pair(last, sg.counter, st.j[u]);
   if (ROWS == 2) {
     ulonglong2 cur[kPairs], o[kPairs];
-    const unsigned long long first = step_key(sg.keys[0]);
+    const unsigned long long first = step_key(keys[0]);
 #pragma unroll
     for (int u = 0; u < kPairs; ++u) {
       cur[u] = stream_pair(first, sg.counter, st.j[u]);
@@ -215,7 +224,7 @@ __device__ __forceinline__ void share_step(const Segment& sg, const Step& st,
 #pragma unroll 1
   for (int p = 0; p < rows; ++p) {
     ulonglong2 o[kPairs];
-    const unsigned long long key = step_key(sg.keys[p]);
+    const unsigned long long key = step_key(keys[p]);
 #pragma unroll
     for (int u = 0; u < kPairs; ++u) {
       const ulonglong2 cur = stream_pair(key, sg.counter, st.j[u]);
@@ -242,6 +251,15 @@ philox_group_kernel(const __grid_constant__ Group<N> g) {
   const unsigned pairs = static_cast<unsigned>((n + 1) >> 1);
   const unsigned stride = static_cast<unsigned>(sg.blocks) * kThreads;
 
+  // the rows' keys, then a fresh draw's dealer key, from the table
+  __shared__ unsigned long long keys[kMaxRows + 1];
+  const int t = static_cast<int>(threadIdx.x);
+  if (t < sg.rows)
+    keys[t] = g.table[sg.slot + t];
+  else if (t == kMaxRows && sg.what == kFresh)
+    keys[kMaxRows] = g.table[sg.dealer_slot];
+  __syncthreads();
+
   for (unsigned j0 = (blockIdx.x - g.block0[s]) * kThreads + threadIdx.x; j0 < pairs;
        j0 += kPairs * stride) {
     Step st;
@@ -257,7 +275,7 @@ philox_group_kernel(const __grid_constant__ Group<N> g) {
 #pragma unroll 1
       for (int r = 0; r < sg.rows; ++r) {
         ulonglong2 v[kPairs];
-        const unsigned long long key = step_key(sg.keys[r]);
+        const unsigned long long key = step_key(keys[r]);
 #pragma unroll
         for (int u = 0; u < kPairs; ++u) v[u] = shr(stream_pair(key, sg.counter, st.j[u]), shift);
         store_row(sg.out + r * n, st, v);
@@ -271,7 +289,7 @@ philox_group_kernel(const __grid_constant__ Group<N> g) {
     for (int u = 0; u < kPairs; ++u) v[u] = make_ulonglong2(0ull, 0ull);
     if (sg.what == kFresh) {
       const int dshift = 64 - sg.draw_kbits;
-      const unsigned long long dealer = step_key(sg.dealer);
+      const unsigned long long dealer = step_key(keys[kMaxRows]);
 #pragma unroll
       for (int u = 0; u < kPairs; ++u)
         v[u] = shr(stream_pair(dealer, sg.draw_counter, st.j[u]), dshift);
@@ -292,9 +310,9 @@ philox_group_kernel(const __grid_constant__ Group<N> g) {
       }
     }
     if (sg.rows == 2)
-      share_step<2>(sg, st, v);
+      share_step<2>(sg, keys, st, v);
     else
-      share_step<0>(sg, st, v);
+      share_step<0>(sg, keys, st, v);
   }
 }
 
@@ -318,8 +336,10 @@ philox_rate_kernel(unsigned* __restrict__ out, uint2 key, unsigned hi, unsigned 
 namespace {
 
 template <int N>
-int launch_group(const Segment* segs, int count, int grid, cudaStream_t stream) {
+int launch_group(const Segment* segs, int count, int grid, const unsigned long long* table,
+                 cudaStream_t stream) {
   Group<N> g = {};
+  g.table = table;
   for (int s = 0; s < count; ++s) {
     g.block0[s] = segs[s].block0;
     g.seg[s] = segs[s];
@@ -332,9 +352,12 @@ int launch_group(const Segment* segs, int count, int grid, cudaStream_t stream) 
 }  // namespace
 
 // segs: `count` segments with block0 and blocks set (kernels/philox.py's
-// plan); grid = the sum of their blocks. Returns cudaGetLastError().
-extern "C" int philox_group_launch(const Segment* segs, int count, int grid, void* stream) {
-  if (count < 1 || count > kMaxSegments || grid < 1) return cudaErrorInvalidValue;
+// plan); grid = the sum of their blocks; table: the key table the slots
+// index. Returns cudaGetLastError().
+extern "C" int philox_group_launch(const Segment* segs, int count, int grid,
+                                   const unsigned long long* table, void* stream) {
+  if (count < 1 || count > kMaxSegments || grid < 1 || table == nullptr)
+    return cudaErrorInvalidValue;
   int next = 0;
   for (int s = 0; s < count; ++s) {
     const Segment& sg = segs[s];
@@ -346,16 +369,16 @@ extern "C" int philox_group_launch(const Segment* segs, int count, int grid, voi
         (share && (sg.src < 0 || sg.src >= sg.rows)) ||
         (sg.emit && (sg.what != kFresh || (sg.n > 0 && sg.value == nullptr))) ||
         ((sg.what == kPlain || sg.what == kPlainLane) && sg.plain == nullptr) ||
-        (sg.n > 0 && sg.out == nullptr))
+        (sg.n > 0 && sg.out == nullptr) || sg.slot < 0 || sg.dealer_slot < 0)
       return cudaErrorInvalidValue;
     next += sg.blocks;
   }
   if (next != grid) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (count <= 1) return launch_group<1>(segs, count, grid, st);
-  if (count <= 2) return launch_group<2>(segs, count, grid, st);
-  if (count <= 8) return launch_group<8>(segs, count, grid, st);
-  return launch_group<kMaxSegments>(segs, count, grid, st);
+  if (count <= 1) return launch_group<1>(segs, count, grid, table, st);
+  if (count <= 2) return launch_group<2>(segs, count, grid, table, st);
+  if (count <= 8) return launch_group<8>(segs, count, grid, table, st);
+  return launch_group<kMaxSegments>(segs, count, grid, table, st);
 }
 
 // Resident blocks of philox_group_kernel an SM (plan's blocks_per_sm): the

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from .. import ring
 from ..mpc.mpc import MPCTensor
 from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
 from ..mpc.primitives.binary import BinarySharedTensor
@@ -70,7 +71,7 @@ def _structure_ops():
         return self.with_share(self.share.narrow(_ax(dim), start, length))
 
     def index_select(self, dim, index):
-        index = torch.as_tensor(index, dtype=torch.int64, device=self.share.device)
+        index = ring.constant(index, self.share.device)
         return self.with_share(torch.index_select(self.share, _ax(dim), index.reshape(-1)))
 
     def getitem(self, idx):

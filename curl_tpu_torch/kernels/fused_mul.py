@@ -22,9 +22,11 @@ local crypten truncation; or the EGK truncation of existing shares alone.
 
 Randomness: draw number ``s`` of a call (its slot in the math's call order)
 at index ``i`` is element ``i`` of ``philox.stream(key, count | s << 48)``,
-``key`` the session's ``fused`` stream (derived from the dealer seed) and
-``count`` one fresh draw count per call, so kernel and plain version agree
-bit for bit whatever the launch geometry and two calls never share a draw.
+``key`` the session's ``fused`` stream (derived from the dealer seed),
+named by its slot of the session key table (``keys.KeyRef``), which the
+kernel reads on the device and the plain version from the host mirror, and
+``count`` one fresh draw count per call, so kernel and plain version agree bit for bit whatever the launch
+geometry and two calls never share a draw.
 ``rk(bits)`` keeps the LOW ``bits`` bits of a draw, as the TPU kernel does.
 The index is the element's place in the index space of what is drawn:
 Beaver's ``a`` (and its share mask) ranges over x's elements, ``b`` over
@@ -43,7 +45,7 @@ import math
 import torch
 
 from ..ring import scalar
-from . import build
+from . import build, keys
 from .philox import MAX_COUNT, slot_counter, stream
 
 OPS = ("mul", "square", "trunc")
@@ -191,9 +193,10 @@ def _check_steps(steps: int, count: int):
                          "48 bits")
 
 
-def plain(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
+def plain(op, trunc, m, x, y, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The kernel's function in plain torch: (2, *shape) result shares."""
     shape = _check(op, trunc, m, x, y, count)
+    key = key.value()
     nd = len(shape)
     xs = _lift(x, nd)
     ys = _lift(y, nd) if y is not None else None
@@ -216,7 +219,7 @@ def plain(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
     return torch.stack([z0.expand(shape), z1.expand(shape)])
 
 
-def plain_square_chain(trunc, m, x, steps: int, key: int, count: int) -> torch.Tensor:
+def plain_square_chain(trunc, m, x, steps: int, key: keys.KeyRef, count: int) -> torch.Tensor:
     """``steps`` squarings with their rescale, step s at draw count
     ``count + s``: ``plain`` called ``steps`` times."""
     _check_steps(steps, count)
@@ -246,8 +249,8 @@ class _Args(ctypes.Structure):
         ("m", ctypes.c_int),
         ("steps", ctypes.c_int),
         ("n", ctypes.c_longlong),
-        ("key", ctypes.c_uint64),
         ("count", ctypes.c_uint64),
+        ("key", ctypes.c_void_p),
     ]
 
 
@@ -297,7 +300,7 @@ def _fill(op_struct, share, shape):
         op_struct.logical[d] = logical[d]
 
 
-def launch(op, trunc, m, x, y, key: int, count: int, steps: int = 1) -> torch.Tensor:
+def launch(op, trunc, m, x, y, key: keys.KeyRef, count: int, steps: int = 1) -> torch.Tensor:
     """(2, *shape) result shares by the CUDA kernel. ``x``/``y``: (2, ...)
     int64 shares on one CUDA device, read in place whatever their strides;
     ``y`` is None for square and trunc. ``steps`` > 1: a chain of
@@ -322,7 +325,8 @@ def launch(op, trunc, m, x, y, key: int, count: int, steps: int = 1) -> torch.Te
         args.size[d] = s
     args.nd, args.n = len(shape), n
     args.op, args.trunc, args.m, args.steps = OPS.index(op), TRUNCS.index(trunc), m, steps
-    args.key, args.count = key & ((1 << 64) - 1), count
+    key.value()  # one slot
+    args.key, args.count = key.pointer(x.device), count
     with torch.cuda.device(x.device):
         rc = _lib().fused_mul_launch(ctypes.byref(args), out.data_ptr(),
                                      torch.cuda.current_stream(x.device).cuda_stream)
@@ -332,13 +336,13 @@ def launch(op, trunc, m, x, y, key: int, count: int, steps: int = 1) -> torch.Te
     return out
 
 
-def launch_square_chain(trunc, m, x, steps: int, key: int, count: int) -> torch.Tensor:
+def launch_square_chain(trunc, m, x, steps: int, key: keys.KeyRef, count: int) -> torch.Tensor:
     """``plain_square_chain`` by one launch: x read once, each element's
     ``steps`` squarings in registers, only the last result written."""
     return launch("square", trunc, m, x, None, key, count, steps)
 
 
-def fused_mul(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
+def fused_mul(op, trunc, m, x, y, key: keys.KeyRef, count: int) -> torch.Tensor:
     """(2, *shape) result shares: the kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
     if x.device.type != "cuda":
@@ -346,7 +350,7 @@ def fused_mul(op, trunc, m, x, y, key: int, count: int) -> torch.Tensor:
     return launch(op, trunc, m, x, y, key, count)
 
 
-def square_chain(trunc, m, x, steps: int, key: int, count: int) -> torch.Tensor:
+def square_chain(trunc, m, x, steps: int, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The chain: one launch on a CUDA tensor, the plain version on a CPU
     tensor."""
     if x.device.type != "cuda":
@@ -385,8 +389,7 @@ def _run(op, x, y, trunc, m):
     from .. import random as rng
     from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
 
-    key = rng.current_keys()["fused"][0]
-    out = fused_mul(op, trunc, m, x.share, y.share if y is not None else None, key,
+    out = fused_mul(op, trunc, m, x.share, y.share if y is not None else None, rng.fused_key(),
                     rng._next_count())
     n = math.prod(out.shape[1:])
     if op == "mul":
@@ -425,7 +428,7 @@ def fused_square_chain_mpc(x, steps: int, m: int):
     from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
 
     counts = rng.reserve_counts(steps)
-    out = square_chain("crypten", m, x.share, steps, rng.current_keys()["fused"][0], counts[0])
+    out = square_chain("crypten", m, x.share, steps, rng.fused_key(), counts[0])
     for _ in range(steps):
         comm.register_virtual("all_sum", math.prod(x.shape) * 8, rounds=1)  # eps
     return ArithmeticSharedTensor(out, x.encoder)

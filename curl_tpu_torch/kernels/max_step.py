@@ -33,12 +33,14 @@ result is dropped (ltz(0) = 0; the step's pad selects 0).
 Randomness: draw number ``s`` of a call (its slot in the math's call order)
 for word ``k`` is element ``k`` of ``philox.stream(key, count | s << 48)``;
 an ``rbit()`` slot gives bit h of that element to half h. ``key`` is the
-session's ``fused`` stream, ``count`` a fresh draw count per call: the
-kernel and its plain version agree bit for bit whatever the launch
-geometry, and two calls of one forward never share a draw. A chain of
-steps takes consecutive draw counts (``random.reserve_counts``), step i
-the count its own call would have taken, so a chain's shares equal the
-per-step composition's bit for bit.
+session's ``fused`` stream, named by its slot of the session key table
+(``keys.KeyRef``: the kernel reads it on the device, the plain versions
+from the host mirror), ``count``
+a fresh draw count per call: the kernel and its plain version agree bit
+for bit whatever the launch geometry, and two calls of one forward never
+share a draw. A chain of steps takes consecutive draw counts
+(``random.reserve_counts``), step i the count its own call would have
+taken, so a chain's shares equal the per-step composition's bit for bit.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ import math
 import torch
 
 from ..ring import scalar
-from . import build
+from . import build, keys
 from .philox import MAX_COUNT, slot_counter, stream
 
 MIN_ELEMENTS = 1024
@@ -194,8 +196,9 @@ def max_step_math(c0, c1, r0, r1, rbits, rbit):
 # the kernel's functions: plain versions and CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _draws(key: int, count: int, m: int, device):
+def _draws(key: keys.KeyRef, count: int, m: int, device):
     """rbits() and rbit() of one call, slot by slot."""
+    key = key.value()
     slot = [0]
 
     def rbits():
@@ -238,7 +241,7 @@ def _unhalve(a0, a1, n: int, shape):
     return torch.stack([a0.reshape(-1)[:n], a1.reshape(-1)[:n]]).reshape((2,) + tuple(shape))
 
 
-def plain_ltz(d, key: int, count: int) -> torch.Tensor:
+def plain_ltz(d, key: keys.KeyRef, count: int) -> torch.Tensor:
     """(2, ...) shares of d -> (2, ...) arithmetic 0/1 shares of d < 0."""
     _check(count, d)
     shape = tuple(d.shape[1:])
@@ -257,7 +260,7 @@ def _broadcast_rolled(carry, rolled):
     return rolled.expand(carry.shape)
 
 
-def plain_max_step(carry, rolled, key: int, count: int) -> torch.Tensor:
+def plain_max_step(carry, rolled, key: keys.KeyRef, count: int) -> torch.Tensor:
     """(2, ...) shares of carry and rolled -> new carry shares."""
     _check(count, carry, rolled)
     rolled = _broadcast_rolled(carry, rolled)
@@ -274,7 +277,7 @@ def _fold_steps(chunked) -> int:
     return chunked.shape[-2] - 1 if chunked.dim() >= 3 else 0
 
 
-def plain_fold_chain(chunked, key: int, count: int) -> torch.Tensor:
+def plain_fold_chain(chunked, key: keys.KeyRef, count: int) -> torch.Tensor:
     """(2, ..., G, W) shares -> the (2, ..., W) running max over the G
     chunks: G - 1 tournament steps, step g (from 1) at draw count
     ``count + g - 1``, each the plain step."""
@@ -291,7 +294,7 @@ def butterfly_shift(width: int, step: int) -> int:
     return -(width >> (step + 1))
 
 
-def plain_butterfly_chain(x, steps: int, key: int, count: int) -> torch.Tensor:
+def plain_butterfly_chain(x, steps: int, key: keys.KeyRef, count: int) -> torch.Tensor:
     """``steps`` butterfly steps over the last dim, step i at draw count
     ``count + i``: x <- step(x, x.roll(butterfly_shift(w, i))), each the
     plain step."""
@@ -328,9 +331,9 @@ class _Args(ctypes.Structure):
         ("steps", ctypes.c_int),
         ("n", ctypes.c_longlong),
         ("b_step", ctypes.c_longlong),
-        ("key", ctypes.c_uint64),
         ("count", ctypes.c_uint64),
         ("dense", ctypes.c_int),
+        ("key", ctypes.c_void_p),
     ]
 
 
@@ -369,7 +372,8 @@ def _launch(entry, tag, key, count, a, b=None, steps=1, b_step=0):
     for d, s in enumerate(shape):
         args.size[d] = s
     args.nd, args.n, args.steps, args.b_step = len(shape), n, steps, b_step
-    args.key, args.count = key & ((1 << 64) - 1), count
+    key.value()  # one slot
+    args.key, args.count = key.pointer(dev), count
     args.dense = int(a[0].is_contiguous())
     with torch.cuda.device(dev):
         rc = getattr(_lib(), f"{entry}_launch")(
@@ -379,21 +383,22 @@ def _launch(entry, tag, key, count, a, b=None, steps=1, b_step=0):
     return out
 
 
-def launch_ltz(d, key: int, count: int) -> torch.Tensor:
+def launch_ltz(d, key: keys.KeyRef, count: int) -> torch.Tensor:
     """Arithmetic 0/1 shares of d < 0 by the CUDA kernel, a thread per word
     pair (d read in place whatever its strides)."""
     _check(count, d)
     return _launch("ltz", "ltz", key, count, d)
 
 
-def launch_max_step(carry, rolled, key: int, count: int, tag: str = "max_step") -> torch.Tensor:
+def launch_max_step(carry, rolled, key: keys.KeyRef, count: int,
+                    tag: str = "max_step") -> torch.Tensor:
     """New carry shares of one tournament step by the CUDA kernel (rolled
     broadcast to carry's shape by stride 0)."""
     _check(count, carry, rolled)
     return _launch("max_step", tag, key, count, carry, rolled)
 
 
-def launch_fold_chain(chunked, key: int, count: int) -> torch.Tensor:
+def launch_fold_chain(chunked, key: keys.KeyRef, count: int) -> torch.Tensor:
     """``plain_fold_chain`` by one launch: the chunks read in place through
     their strides, the carry kept in registers."""
     steps = _fold_steps(chunked)
@@ -403,7 +408,7 @@ def launch_fold_chain(chunked, key: int, count: int) -> torch.Tensor:
                    chunked.select(d - 2, 1), steps=steps, b_step=chunked.stride(d - 2))
 
 
-def launch_butterfly_chain(x, steps: int, key: int, count: int) -> torch.Tensor:
+def launch_butterfly_chain(x, steps: int, key: keys.KeyRef, count: int) -> torch.Tensor:
     """``plain_butterfly_chain`` by the CUDA kernel: one launch where the
     rows pair (``butterfly_pairs``), else the step kernel once a step on a
     rolled copy (counted as "butterfly_unpaired")."""
@@ -416,28 +421,28 @@ def launch_butterfly_chain(x, steps: int, key: int, count: int) -> torch.Tensor:
     return x
 
 
-def ltz(d, key: int, count: int) -> torch.Tensor:
+def ltz(d, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if d.device.type != "cuda":
         return plain_ltz(d, key, count)
     return launch_ltz(d, key, count)
 
 
-def max_step(carry, rolled, key: int, count: int) -> torch.Tensor:
+def max_step(carry, rolled, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if carry.device.type != "cuda":
         return plain_max_step(carry, rolled, key, count)
     return launch_max_step(carry, rolled, key, count)
 
 
-def fold_chain(chunked, key: int, count: int) -> torch.Tensor:
+def fold_chain(chunked, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The fold kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if chunked.device.type != "cuda":
         return plain_fold_chain(chunked, key, count)
     return launch_fold_chain(chunked, key, count)
 
 
-def butterfly_chain(x, steps: int, key: int, count: int) -> torch.Tensor:
+def butterfly_chain(x, steps: int, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The butterfly kernel on a CUDA tensor, the plain version on a CPU
     tensor."""
     if x.device.type != "cuda":
@@ -469,7 +474,7 @@ def fused_ltz_mpc(x):
     from .. import random as rng
     from ..encoder import FixedPointEncoder
 
-    out = ltz(x.share, rng.current_keys()["fused"][0], rng._next_count())
+    out = ltz(x.share, rng.fused_key(), rng._next_count())
     _register_sign_circuit(x.nelement())
     return _mpc(out, FixedPointEncoder(0))
 
@@ -494,8 +499,7 @@ def fused_max_step_mpc(carry, rolled):
     """new = rolled + (carry >= rolled) * (carry - rolled) in one pass."""
     from .. import random as rng
 
-    out = max_step(carry.share, rolled.share, rng.current_keys()["fused"][0],
-                   rng._next_count())
+    out = max_step(carry.share, rolled.share, rng.fused_key(), rng._next_count())
     _register_step(carry.nelement())
     return _mpc(out, carry.encoder)
 
@@ -508,7 +512,7 @@ def fused_fold_chain_mpc(chunked):
 
     steps = chunked.size(chunked.dim() - 2) - 1
     counts = rng.reserve_counts(steps)
-    out = fold_chain(chunked.share, rng.current_keys()["fused"][0], counts[0])
+    out = fold_chain(chunked.share, rng.fused_key(), counts[0])
     for _ in range(steps):
         _register_step(out[0].numel())
     return _mpc(out, chunked.encoder)
@@ -521,7 +525,7 @@ def fused_butterfly_chain_mpc(x, steps: int):
     from .. import random as rng
 
     counts = rng.reserve_counts(steps)
-    out = butterfly_chain(x.share, steps, rng.current_keys()["fused"][0], counts[0])
+    out = butterfly_chain(x.share, steps, rng.fused_key(), counts[0])
     for _ in range(steps):
         _register_step(x.nelement())
     return _mpc(out, x.encoder)

@@ -24,6 +24,11 @@ Stream element 2j and 2j + 1 are the four words of Philox4x32-10 at counter
 device the kernel runs; on the CPU the plain version, ``plain_philox_group``:
 the per-segment sequence of ``plain_philox`` calls and torch ops that the
 TFP dealer made before the group existed, bit-identical to the kernel.
+
+A segment names its keys (and a fresh draw's dealer key) by slots of a
+key table (``keys.KeyRef``), which the kernel loads from the device once
+per block and the plain version reads from the table's host mirror: a
+captured launch draws from whatever keys the table holds at replay.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Optional
 import torch
 
 from . import build
+from .keys import KeyRef
 
 # the first slices' modes, each a one-segment group of what
 MODES = {"draw": "draw", "przs": "zero", "share": "plain", "share_lane": "plain_lane"}
@@ -72,12 +78,11 @@ class _SegmentArgs(ctypes.Structure):
 
     _fields_ = [
         ("out", ctypes.c_void_p), ("value", ctypes.c_void_p), ("plain", ctypes.c_void_p),
-        ("n", ctypes.c_longlong),
-        ("keys", ctypes.c_uint64 * MAX_ROWS), ("counter", ctypes.c_uint64),
-        ("dealer", ctypes.c_uint64), ("draw_counter", ctypes.c_uint64),
+        ("n", ctypes.c_longlong), ("counter", ctypes.c_uint64), ("draw_counter", ctypes.c_uint64),
         ("block0", ctypes.c_int), ("blocks", ctypes.c_int), ("rows", ctypes.c_int),
         ("what", ctypes.c_int), ("xor_share", ctypes.c_int), ("kbits", ctypes.c_int),
         ("draw_kbits", ctypes.c_int), ("src", ctypes.c_int), ("emit", ctypes.c_int),
+        ("slot", ctypes.c_int), ("dealer_slot", ctypes.c_int),
     ]
 
 
@@ -86,6 +91,7 @@ def _lib():
     if not getattr(lib, "_curl_bound", False):
         lib.philox_group_launch.argtypes = [
             ctypes.POINTER(_SegmentArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         lib.philox_group_launch.restype = ctypes.c_int
         lib.philox_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -101,25 +107,30 @@ def _lib():
 
 @dataclass(frozen=True, eq=False)
 class Segment:
-    """One segment of a grouped launch. ``keys``: a draw's stream seeds
-    (one row each), or a sharing's ring seeds (one per party); ``counter``:
-    the draw's, or the sharing streams'; ``kbits``: the bits of a draw's
-    rows or of an XOR sharing's streams (an additive sharing takes 64);
-    ``fresh`` draws v from ``dealer`` at ``draw_counter`` with
-    ``draw_kbits`` bits, and ``emit`` returns v beside the shares."""
+    """One segment of a grouped launch. ``keys``: the key-table slots of a
+    draw's stream seeds (one row each), or of a sharing's ring seeds (one
+    per party); ``counter``: the draw's, or the sharing streams'; ``kbits``:
+    the bits of a draw's rows or of an XOR sharing's streams (an additive
+    sharing takes 64); ``fresh`` draws v from the seed in slot ``dealer`` at
+    ``draw_counter`` with ``draw_kbits`` bits, and ``emit`` returns v beside
+    the shares."""
 
     what: str
-    keys: tuple
+    keys: KeyRef
     counter: int
     n: int
     how: str = "add"
     kbits: int = 64
     src: int = 0
     plain: Optional[torch.Tensor] = None
-    dealer: int = 0
+    dealer: Optional[KeyRef] = None
     draw_counter: int = 0
     draw_kbits: int = 64
     emit: bool = False
+
+    @property
+    def rows(self) -> int:
+        return self.keys.rows
 
     @property
     def tag(self) -> str:
@@ -134,7 +145,7 @@ class Segment:
     def signature(self) -> tuple:
         """What the kernel's work depends on: (what, how, keys, n, kbits,
         src, draw_kbits, emit)."""
-        return (self.what, self.how, len(self.keys), self.n, self.kbits, self.src,
+        return (self.what, self.how, self.rows, self.n, self.kbits, self.src,
                 self.draw_kbits, self.emit)
 
 
@@ -209,28 +220,32 @@ def plain_philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=Non
 
 
 def _check_segment(seg: Segment):
+    if not isinstance(seg.keys, KeyRef):
+        raise ValueError("a segment names its keys by key-table slots (keys.KeyRef)")
     if seg.what not in WHATS:
         raise ValueError(f"unknown philox segment {seg.what!r}")
     if seg.how not in HOWS:
         raise ValueError(f"philox sharing is 'add' or 'xor', not {seg.how!r}")
-    if not 1 <= len(seg.keys) <= MAX_ROWS:
-        raise ValueError(f"philox takes 1 to {MAX_ROWS} keys, got {len(seg.keys)}")
+    if not 1 <= seg.rows <= MAX_ROWS:
+        raise ValueError(f"philox takes 1 to {MAX_ROWS} keys, got {seg.rows}")
+    if seg.what == "fresh" and not (isinstance(seg.dealer, KeyRef) and seg.dealer.rows == 1):
+        raise ValueError("a fresh draw's dealer key is one key-table slot")
     if not 0 <= seg.n <= MAX_N:
         raise ValueError(f"philox n {seg.n} outside 0..{MAX_N}")
     for bits in (seg.kbits, seg.draw_kbits):
         if not 1 <= bits <= 64:
             raise ValueError(f"kbits {bits} outside 1..64")
-    if not all(0 <= k <= _M64 for k in (*seg.keys, seg.counter, seg.dealer, seg.draw_counter)):
-        raise ValueError("philox keys and counters are 64-bit unsigned")
+    if not all(0 <= c <= _M64 for c in (seg.counter, seg.draw_counter)):
+        raise ValueError("philox counters are 64-bit unsigned")
     if seg.what != "draw":
-        if not 0 <= seg.src < len(seg.keys):
-            raise ValueError(f"src {seg.src} outside the {len(seg.keys)} parties")
+        if not 0 <= seg.src < seg.rows:
+            raise ValueError(f"src {seg.src} outside the {seg.rows} parties")
         if seg.how == "add" and seg.kbits != 64:
             raise ValueError("an additive sharing takes 64-bit streams")
     if seg.emit and seg.what != "fresh":
         raise ValueError("only a fresh draw can be emitted")
     if seg.what in ("plain", "plain_lane"):
-        want = (seg.n,) if seg.what == "plain" else (len(seg.keys), seg.n)
+        want = (seg.n,) if seg.what == "plain" else (seg.rows, seg.n)
         p = seg.plain
         if p is None or p.dtype != torch.int64 or tuple(p.shape) != want:
             raise ValueError(f"philox {seg.what} takes an int64 plain of shape {want}")
@@ -245,17 +260,29 @@ def _check_group(segments):
         raise ValueError(f"a philox group takes 1 to {MAX_SEGMENTS} segments, got {len(segments)}")
     for seg in segments:
         _check_segment(seg)
+    _table_of(segments)
+
+
+def _table_of(segments):
+    """The one key table the segments' slots name."""
+    tables = {id(r.table): r.table for seg in segments for r in (seg.keys, seg.dealer)
+              if r is not None}
+    if len(tables) != 1:
+        raise ValueError("a philox group reads one key table")
+    return next(iter(tables.values()))
 
 
 def _plain_segment(seg: Segment, device) -> torch.Tensor:
     """One segment as the TFP dealer computed it before the group: the
-    plain_philox calls and torch ops, in order."""
-    keys, P = list(seg.keys), len(seg.keys)
+    plain_philox calls and torch ops, in order (key slots read from the
+    table's host mirror)."""
+    keys = list(seg.keys.values())
+    P = len(keys)
     if seg.what == "draw":
         return plain_philox("draw", keys, seg.counter, seg.n, kbits=seg.kbits, device=device)
     if seg.what == "fresh":
-        v = plain_philox("draw", [seg.dealer], seg.draw_counter, seg.n, kbits=seg.draw_kbits,
-                         device=device)[0]
+        v = plain_philox("draw", [seg.dealer.value()], seg.draw_counter, seg.n,
+                         kbits=seg.draw_kbits, device=device)[0]
     else:
         v = seg.plain
     if seg.how == "add":
@@ -333,7 +360,7 @@ def philox_group(segments, device=None):
     for seg in segments:
         if seg.plain is not None and seg.plain.device != device:
             raise ValueError(f"philox plain on {seg.plain.device}, not {device}")
-    outs = [torch.empty((len(seg.keys), seg.n), dtype=torch.int64, device=device)
+    outs = [torch.empty((seg.rows, seg.n), dtype=torch.int64, device=device)
             for seg in segments]
     values = [torch.empty(seg.n, dtype=torch.int64, device=device) if seg.emit else None
               for seg in segments]
@@ -344,32 +371,35 @@ def philox_group(segments, device=None):
     p = plan([seg for seg, _, _ in live],
              torch.cuda.get_device_properties(device).multi_processor_count,
              _resident_blocks(device))
+    table = _table_of([seg for seg, _, _ in live])
     args = (_SegmentArgs * len(live))()
     for i, (a, (seg, out, value)) in enumerate(zip(args, live)):
         a.out = out.data_ptr()
         a.value = value.data_ptr() if value is not None else None
         a.plain = seg.plain.data_ptr() if seg.plain is not None else None
         a.n = seg.n
-        for r, k in enumerate(seg.keys):
-            a.keys[r] = k
-        a.counter, a.dealer, a.draw_counter = seg.counter, seg.dealer, seg.draw_counter
+        a.slot = seg.keys.slot
+        a.dealer_slot = seg.dealer.slot if seg.what == "fresh" else 0
+        a.counter, a.draw_counter = seg.counter, seg.draw_counter
         a.block0, a.blocks = p["block0"][i], p["blocks"][i]
-        a.rows, a.what, a.xor_share = len(seg.keys), WHATS[seg.what], int(seg.how == "xor")
+        a.rows, a.what, a.xor_share = seg.rows, WHATS[seg.what], int(seg.how == "xor")
         a.kbits, a.draw_kbits, a.src, a.emit = seg.kbits, seg.draw_kbits, seg.src, int(seg.emit)
     with torch.cuda.device(device):
         stream_ptr = torch.cuda.current_stream(device).cuda_stream
-        rc = _lib().philox_group_launch(args, len(live), p["grid"], stream_ptr)
+        rc = _lib().philox_group_launch(args, len(live), p["grid"],
+                                        table.tensor(device).data_ptr(), stream_ptr)
     build.check(rc, "philox")
     mode = "+".join(sorted({seg.tag for seg in segments}))
     launches[mode] = launches.get(mode, 0) + 1
     return outs
 
 
-def philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=None):
+def philox(mode, keys: KeyRef, counter, n, plain=None, src=0, kbits=64, device=None):
     """(rows, n) int64 of one of the first slices' modes: a one-segment
-    group. ``keys``: 64-bit seeds (Python ints); ``counter``: the draw."""
-    _check(mode, keys, n, plain, src, kbits)
-    seg = Segment(MODES[mode], tuple(k & _M64 for k in keys), counter & _M64, n,
+    group, ``plain_philox`` of the keys in slots ``keys``; ``counter``: the
+    draw."""
+    _check(mode, keys.values(), n, plain, src, kbits)
+    seg = Segment(MODES[mode], keys, counter & _M64, n,
                   kbits=kbits if mode == "draw" else 64, src=src, plain=plain)
     return philox_group([seg], device)[0]
 

@@ -40,13 +40,17 @@ def _get_protocol():
     return beaver
 
 
-def _public_tensor(value):
-    """Public value -> tensor on the session device (floats as float64)."""
+def _public_tensor(value, constant: bool = False):
+    """Public value -> tensor on the session device (floats as float64).
+    ``constant``: a host value is a public operand of a forward, copied
+    once and cached (``ring.host_constant``), never on each use."""
     if isinstance(value, torch.Tensor):
         return value.to(comm.get_device())
     arr = np.asarray(value)
     if arr.dtype.kind == "f":
         arr = arr.astype(np.float64)
+    if constant:
+        return ring.host_constant(arr, comm.get_device())
     return torch.from_numpy(np.ascontiguousarray(arr)).to(comm.get_device())
 
 
@@ -54,7 +58,7 @@ def _encode(encoder, y):
     """Encoded public value: Python int for scalars, else an int64 tensor."""
     if isinstance(y, numbers.Number):
         return encoder.encode(y)
-    return encoder.encode(_public_tensor(y))
+    return encoder.encode(_public_tensor(y, constant=True))
 
 
 class ArithmeticSharedTensor:
@@ -212,7 +216,7 @@ class ArithmeticSharedTensor:
             return self.div_trunc(int(y))
         if isinstance(y, numbers.Real):
             return self.mul(1.0 / y)
-        return self.mul(1.0 / _public_tensor(y).to(torch.float64))
+        return self.mul(1.0 / _public_tensor(y, constant=True).to(torch.float64))
 
     def egk_trunc_pr(self, l: int, m: int):
         """EGK+20 probabilistic truncation by m bits (arithmetic.py:508)."""

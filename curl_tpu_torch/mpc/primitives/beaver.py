@@ -194,7 +194,7 @@ def _flat(x):
 
 def evaluate_lut(x, lut):
     """result[n] = T[x_n mod L] with one reveal (beaver.py:552)."""
-    lut = ring.to_ring(lut, comm.get_device())
+    lut = ring.constant(lut, comm.get_device())
     (result,) = _lut_gather_fast(_flat(x), [lut], lut.shape[0])
     return ArithmeticSharedTensor(result.reshape(x.share.shape), x.encoder)
 
@@ -202,7 +202,7 @@ def evaluate_lut(x, lut):
 def evaluate_bior_lut(x, luts, scale, bias: int):
     """Two-bank LUT + private linear interpolation (beaver.py:566):
     (lut1 - lut0) * scale + 2^bias * lut0, then EGK-truncate by 2*bias."""
-    luts = ring.to_ring(luts, comm.get_device())  # (2, L)
+    luts = ring.constant(luts, comm.get_device())  # (2, L)
     lut0, lut1 = _lut_gather_fast(_flat(x), [luts[0], luts[1]], luts.shape[1])
     scaling = _raw(_flat(scale))
     prod = mul(ArithmeticSharedTensor(lut1 - lut0, FixedPointEncoder(0)), scaling)

@@ -79,7 +79,7 @@ class BinarySharedTensor:
 
     # -- bitwise ops -------------------------------------------------------
     def _public(self, y):
-        return ring.scalar(int(y)) if isinstance(y, numbers.Integral) else ring.to_ring(
+        return ring.scalar(int(y)) if isinstance(y, numbers.Integral) else ring.constant(
             y, comm.get_device()
         )
 

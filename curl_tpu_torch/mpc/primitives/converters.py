@@ -9,8 +9,6 @@ comparison outputs.
 
 from __future__ import annotations
 
-import torch
-
 from ... import comm, ring
 from ...encoder import FixedPointEncoder
 from . import beaver
@@ -39,8 +37,8 @@ def B2A(binary_tensor: BinarySharedTensor, precision=None, bits=None) -> Arithme
             [binary_tensor.logical_rshift(i) for i in range(bits)]
         ) & 1
         arithmetic_bits = beaver.B2A_single_bit(stacked)
-        multiplier = torch.tensor(
-            [ring.scalar(1 << i) for i in range(bits)], dtype=torch.int64, device=stacked.share.device
+        multiplier = ring.constant(
+            [ring.scalar(1 << i) for i in range(bits)], stacked.share.device
         ).reshape((bits,) + (1,) * binary_tensor.ndim)
         share = (arithmetic_bits.share * multiplier).sum(dim=1)
         arithmetic_tensor = ArithmeticSharedTensor(share, FixedPointEncoder(0))

@@ -123,6 +123,38 @@ class Module(torch.nn.Module):
             m._params[name] = cryptensor(m._params[name], src=src)
         return self
 
+    # -- functional extraction (the compiled path) --------------------------
+    def params_pytree(self):
+        """The parameters (plaintext or encrypted; a chunked weight as its
+        list of chunks) as a nested dict: this module's under
+        ``"__params__"``, each child's under its name."""
+        out = {"__params__": dict(self._params)}
+        for name, m in self._modules.items():
+            if isinstance(m, Module):
+                out[name] = m.params_pytree()
+        return out
+
+    def bind_params(self, tree):
+        """Install a params pytree (``params_pytree``'s structure)."""
+        for name, p in tree.get("__params__", {}).items():
+            self._params[name] = p
+        for name, m in self._modules.items():
+            if isinstance(m, Module) and name in tree:
+                m.bind_params(tree[name])
+        return self
+
+    def functional(self):
+        """(apply_fn, params): ``apply_fn(params, *inputs)`` binds the
+        parameters and runs ``forward``, the function that
+        ``parallel.compile_parties`` captures (binding is Python, so a
+        captured graph reads the bound tensors)."""
+
+        def apply_fn(p, *inputs):
+            self.bind_params(p)
+            return self.forward(*inputs)
+
+        return apply_fn, self.params_pytree()
+
     def resident_share_bytes(self) -> int:
         """Bytes of the encrypted parameters' shares kept between forwards:
         every party's share of a materialized tensor, share0 and the key of

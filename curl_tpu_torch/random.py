@@ -16,7 +16,18 @@ Counterpart of ``curl_tpu/random.py``. Every stream is a 64-bit Philox seed:
 
 A draw is (stream seed, draw counter, element index) -> 64 bits: the counter
 advances once per draw and restarts in ``init`` (``reset_count``), so a
-seeded session replays the same randomness whatever ran before it. Dealer
+seeded session replays the same randomness whatever ran before it.
+
+The stream seeds live in one session key table (``kernels/keys.KeyTable``):
+``next``, ``prev`` and ``local`` for up to ``MAX_PARTIES`` parties, then
+``global``, ``dealer`` and ``fused``, on the host and on each device that a
+kernel has read it from. ``set_keys`` writes it in place and never
+reallocates it, and every segment and fused call names a stream by its
+slot (``stream_ref``, ``fused_key``), not by its value: a launch captured
+in a CUDA graph reads the keys the table holds at replay, as the JAX
+package's jitted program takes its keys as an argument. The ``param`` root
+is no stream seed and stays on the host; the per-tensor keys of
+seed-compressed weights are literals fixed when the model is built. Dealer
 and global draws carry no party axis (computed once); per-party draws come
 back as (P, ...). On a CUDA device the draws and shares of one call are
 segments (``kernels/philox.Segment``) of one grouped launch of the Philox
@@ -36,7 +47,8 @@ import threading
 import torch
 
 from . import comm
-from .kernels.philox import MAX_SEGMENTS, Segment, philox_group
+from .kernels.keys import KeyTable
+from .kernels.philox import MAX_ROWS, MAX_SEGMENTS, Segment, philox_group
 
 _M64 = (1 << 64) - 1
 
@@ -44,6 +56,14 @@ _counter = 0
 _constructions = 0
 _counter_lock = threading.Lock()
 _keys = None
+
+# the session key table: first slot of each stream (per-party streams take
+# MAX_PARTIES slots, one a party; the shared ones one)
+MAX_PARTIES = MAX_ROWS
+SLOTS = {"next": 0, "prev": MAX_PARTIES, "local": 2 * MAX_PARTIES,
+         "global": 3 * MAX_PARTIES, "dealer": 3 * MAX_PARTIES + 1,
+         "fused": 3 * MAX_PARTIES + 2}
+TABLE = KeyTable(3 * MAX_PARTIES + 3)
 
 
 def _next_count() -> int:
@@ -61,6 +81,19 @@ def reserve_counts(k: int) -> list:
         c = _counter
         _counter += k
         return list(range(c, c + k))
+
+
+def counter() -> int:
+    """The next draw counter."""
+    return _counter
+
+
+def set_counter(c: int):
+    """Continue drawing from counter ``c`` (the compiled runner replays a
+    captured forward's counters)."""
+    global _counter
+    with _counter_lock:
+        _counter = int(c)
 
 
 def reset_count():
@@ -99,8 +132,21 @@ def make_party_keys(seed: int, world_size: int) -> dict:
 
 
 def set_keys(keys: dict):
+    """Make ``keys`` (``make_party_keys``'s) the session's streams: the host
+    dict, and the key table written in place, on the host and on each
+    device copy in stream order."""
     global _keys
+    P = len(keys["next"])
+    if not 1 <= P <= MAX_PARTIES:
+        raise ValueError(f"the key table holds 1 to {MAX_PARTIES} parties, not {P}")
+    for name, slot in SLOTS.items():
+        TABLE.write(keys[name], slot)
     _keys = keys
+
+
+def session_keys():
+    """The session's key dict, or None before ``init``."""
+    return _keys
 
 
 def current_keys() -> dict:
@@ -142,6 +188,20 @@ def compressed_master(tag: int) -> int:
 _SHARED = ("global", "dealer", "fused")
 
 
+def stream_ref(generator: str):
+    """The slots of ``generator``'s stream seeds in the session key table:
+    one row for a shared stream, one a party for a per-party one."""
+    rows = 1 if generator in _SHARED else len(current_keys()[generator])
+    return TABLE.ref(SLOTS[generator], rows)
+
+
+def fused_key():
+    """The slot of the ``fused`` stream, the key of the fused protocol
+    kernels (``kernels/fused_mul.py``, ``kernels/max_step.py``)."""
+    current_keys()
+    return TABLE.ref(SLOTS["fused"])
+
+
 def dealer_stream() -> str:
     """Stream for tuple plaintexts (Beaver a/b, square r, LUT r, EGK
     randomness): drawn once, without a party axis, like the JAX package's
@@ -160,15 +220,15 @@ def _flat(value: torch.Tensor, per_party: bool) -> torch.Tensor:
 
 def segment_draw(shape, bitlength: int, generator: str, counter: int) -> Segment:
     """Uniform k-bit values in [0, 2^bitlength) of ``generator``'s streams."""
-    return Segment("draw", tuple(current_keys()[generator]), counter, _numel(tuple(shape)),
+    return Segment("draw", stream_ref(generator), counter, _numel(tuple(shape)),
                    kbits=min(bitlength, 64))
 
 
 def segment_zero(shape, counter: int, how: str = "add", bits: int = 64) -> Segment:
     """A sharing of zero over the ring streams: additive (PRZS) or XOR of
     ``bits``-bit streams."""
-    return Segment("zero", tuple(current_keys()["next"]), counter, _numel(tuple(shape)),
-                   how=how, kbits=bits)
+    return Segment("zero", stream_ref("next"), counter, _numel(tuple(shape)), how=how,
+                   kbits=bits)
 
 
 def segment_share(value: torch.Tensor, counter: int, src: int = 0, per_party: bool = False,
@@ -177,17 +237,16 @@ def segment_share(value: torch.Tensor, counter: int, src: int = 0, per_party: bo
     ``value`` on party ``src``; ``per_party``: value is (P,) + S and only
     row src enters."""
     flat = _flat(value, per_party)
-    return Segment("plain_lane" if per_party else "plain", tuple(current_keys()["next"]),
-                   counter, flat.shape[-1], how=how, src=src, plain=flat)
+    return Segment("plain_lane" if per_party else "plain", stream_ref("next"), counter,
+                   flat.shape[-1], how=how, src=src, plain=flat)
 
 
 def segment_fresh(shape, bitlength: int, draw_counter: int, counter: int, how: str = "add",
                   emit: bool = False) -> Segment:
     """A dealer draw of ``bitlength`` bits at ``draw_counter``, shared on
     party 0 in the same pass (``emit``: returned beside the shares)."""
-    keys = current_keys()
-    return Segment("fresh", tuple(keys["next"]), counter, _numel(tuple(shape)), how=how,
-                   dealer=keys["dealer"][0], draw_counter=draw_counter,
+    return Segment("fresh", stream_ref("next"), counter, _numel(tuple(shape)), how=how,
+                   dealer=stream_ref("dealer"), draw_counter=draw_counter,
                    draw_kbits=min(bitlength, 64), emit=emit)
 
 

@@ -22,7 +22,9 @@ below 2^31 (K < 2^17), far inside float64's 2^53.
 
 from __future__ import annotations
 
+import contextlib
 import numbers
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -43,9 +45,20 @@ def scalar(value: int) -> int:
     return v - _MOD if v >= (1 << 63) else v
 
 
+def _ring_array(x) -> np.ndarray:
+    """A host value as an int64 numpy array of ring elements."""
+    arr = np.asarray(x)
+    if arr.dtype == np.uint64:
+        return arr.view(np.int64)
+    if arr.dtype.kind in "iub":
+        return arr.astype(np.int64)
+    raise TypeError(f"cannot interpret dtype {arr.dtype} as ring element")
+
+
 def to_ring(x, device=None) -> torch.Tensor:
     """Reinterpret anything integral as int64 ring elements (uint64 numpy
-    arrays keep their bits)."""
+    arrays keep their bits). A Python int becomes a 0-d tensor filled on the
+    device, with no copy from the host."""
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.int64:
             return x if device is None else x.to(device)
@@ -53,15 +66,62 @@ def to_ring(x, device=None) -> torch.Tensor:
             raise TypeError(f"cannot interpret dtype {x.dtype} as ring element")
         return x.to(device=device, dtype=torch.int64)
     if isinstance(x, numbers.Integral):
-        return torch.tensor(scalar(x), dtype=torch.int64, device=device)
-    arr = np.asarray(x)
-    if arr.dtype == np.uint64:
-        arr = arr.view(np.int64)
-    elif arr.dtype.kind in "iub":
-        arr = arr.astype(np.int64)
-    else:
-        raise TypeError(f"cannot interpret dtype {arr.dtype} as ring element")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return torch.full((), scalar(x), dtype=torch.int64, device=device)
+    return torch.from_numpy(np.ascontiguousarray(_ring_array(x))).to(device)
+
+
+# public host constants on their devices, most recently used last. The cap
+# bounds only this shared cache, which serves eager forwards; a compiled
+# runner reads its graph's constants from its own record
+# (``holding_constants``), which nothing evicts.
+_constants = OrderedDict()
+MAX_CONSTANTS = 256
+# the records of the runners capturing now, innermost last
+_held = []
+
+
+@contextlib.contextmanager
+def holding_constants(held: dict):
+    """Inside, every host constant looked up is read from ``held`` first
+    and kept there: a compiled runner's record of the constants its warm-up
+    made and its graph reads, alive for as long as the graph."""
+    _held.append(held)
+    try:
+        yield
+    finally:
+        _held.pop()
+
+
+def host_constant(arr, device) -> torch.Tensor:
+    """A numpy array on ``device``, copied from the host once per (device,
+    dtype, shape, contents) and kept (the shared cache keeps the last
+    ``MAX_CONSTANTS``, a runner's record all it looked up): the public
+    tables and constants of a forward are made at its first run, so that
+    the same forward captured in a CUDA graph copies nothing from the host.
+    Never written into."""
+    arr = np.ascontiguousarray(arr)
+    key = (str(torch.device(device)), arr.dtype.str, arr.shape, arr.tobytes())
+    t = _held[-1].get(key) if _held else None
+    if t is None:
+        t = _constants.get(key)
+    if t is None:
+        t = torch.from_numpy(arr.copy()).to(device)
+        _constants[key] = t
+        if len(_constants) > MAX_CONSTANTS:
+            _constants.popitem(last=False)
+    elif key in _constants:
+        _constants.move_to_end(key)
+    if _held:
+        _held[-1][key] = t
+    return t
+
+
+def constant(x, device) -> torch.Tensor:
+    """``to_ring(x, device)`` of a public value; a host array (a LUT, an
+    index list) through the cache of ``host_constant``."""
+    if isinstance(x, (torch.Tensor, numbers.Integral)):
+        return to_ring(x, device)
+    return host_constant(_ring_array(x), device)
 
 
 def to_numpy_u64(x: torch.Tensor) -> np.ndarray:

@@ -561,3 +561,93 @@ if __name__ == "__main__":
     st = rounds_by_stage(args.width, args.vocab, args.blocks)
     print(f"width {args.width}, vocab {args.vocab}, {args.blocks} blocks: {st}, "
           f"total {sum(st.values())}")
+
+
+# ---------------------------------------------------------------------------
+# the fused key read from the session key table
+# ---------------------------------------------------------------------------
+
+def _key_cases(device, kernel=False):
+    """(name, call(key)) of every fused kernel entry, the plain versions or
+    (``kernel``) the launches: each call takes the key as a key-table
+    slot."""
+    g = torch.Generator().manual_seed(3)
+    r = lambda *s: torch.randint(-(2 ** 40), 2 ** 40, s, generator=g).to(device)  # noqa: E731
+    x, y, chunked = r(2, 9, 130), r(2, 9, 1), r(2, 3, 4, 64)
+    mul, chain, ltz, step, fold, butterfly = (
+        (fm.launch, fm.launch_square_chain, ms.launch_ltz, ms.launch_max_step,
+         ms.launch_fold_chain, ms.launch_butterfly_chain) if kernel else
+        (fm.plain, fm.plain_square_chain, ms.plain_ltz, ms.plain_max_step, ms.plain_fold_chain,
+         ms.plain_butterfly_chain))
+    return [
+        ("mul+egk", lambda k: mul("mul", "egk", 16, x, y, k, 7)),
+        ("square+crypten", lambda k: mul("square", "crypten", 16, x, None, k, 7)),
+        ("trunc+egk", lambda k: mul("trunc", "egk", 12, x, None, k, 7)),
+        ("square chain", lambda k: chain("crypten", 16, x, 8, k, 7)),
+        ("ltz", lambda k: ltz(x, k, 7)),
+        ("max_step", lambda k: step(x, y, k, 7)),
+        ("fold", lambda k: fold(chunked, k, 7)),
+        ("butterfly", lambda k: butterfly(chunked.reshape(2, 12, 64), 6, k, 7)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_fused_plain_reads_the_slot_as_the_literal_key(case):
+    from curl_tpu_torch.kernels.keys import KeyTable, hold
+
+    name, call = _key_cases("cpu")[case]
+    table = KeyTable(4)
+    key = 0x0123_4567_89AB_CDEF
+    table.write([key ^ 5, key], 1)
+    literal, moved = hold((key,), (key ^ 9,))  # the same keys in slots of their own
+    want = call(literal)
+    assert torch.equal(call(table.ref(2)), want), name
+    assert not torch.equal(call(table.ref(1)), want), name
+    table.write([key ^ 9], 2)  # the slot is read at the call
+    assert torch.equal(call(table.ref(2)), call(moved)), name
+    assert not torch.equal(call(table.ref(2)), want), name
+
+
+def test_fused_mpc_entries_name_the_session_fused_slot(monkeypatch):
+    from curl_tpu_torch import random as trng
+    from curl_tpu_torch.kernels.keys import KeyRef
+
+    ct.init(world_size=2, seed=31, device="cpu")
+    seen = []
+    for mod, name in ((fm, "fused_mul"), (fm, "square_chain"), (ms, "ltz"), (ms, "max_step"),
+                      (ms, "fold_chain"), (ms, "butterfly_chain")):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name: (seen.append((_n, a[-2])),
+                                                                     _o(*a))[1])
+    x = ct.cryptensor(np.linspace(-2, 2, 2048).reshape(32, 64))
+    with cfg.temp_override(BENCH):
+        (x * x).exp()
+        x.max_value(-1)
+        x.gelu()
+    names = {n for n, _ in seen}
+    assert {"fused_mul", "square_chain", "ltz"} <= names and names & {"fold_chain",
+                                                                       "butterfly_chain"}
+    for name, key in seen:
+        assert isinstance(key, KeyRef) and key.table is trng.TABLE, name
+        assert key.slot == trng.SLOTS["fused"] and key.values() == tuple(
+            trng.current_keys()["fused"]), name
+
+
+@pytest.mark.cuda
+def test_fused_kernels_read_the_slot_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from curl_tpu_torch.kernels.keys import KeyTable, hold
+
+    table = KeyTable(4)
+    key = 0x0123_4567_89AB_CDEF
+    table.write([key ^ 5, key], 1)
+    literal, moved = hold((key,), (key ^ 9,))
+    for (name, launch), (_, plain) in zip(_key_cases("cuda", kernel=True), _key_cases("cuda")):
+        want = plain(literal)
+        assert torch.equal(launch(literal), want), name
+        assert torch.equal(launch(table.ref(2)), want), name
+        table.write([key ^ 9], 2)  # in stream order: the next launch reads it
+        got = launch(table.ref(2))
+        assert torch.equal(got, plain(moved)) and not torch.equal(got, want), name
+        table.write([key], 2)

@@ -31,8 +31,9 @@ from curl_tpu_torch import random as crandom  # noqa: E402
 from curl_tpu_torch.config import cfg  # noqa: E402
 from curl_tpu_torch.kernels import fused_mul as fm  # noqa: E402
 from curl_tpu_torch.kernels import max_step as ms  # noqa: E402
+from curl_tpu_torch.kernels.keys import hold  # noqa: E402
 
-KEY = 0x0123_4567_89AB_CDEF
+KEY, = hold((0x0123_4567_89AB_CDEF,))  # the fused key, in a key-table slot
 KNOBS = {"mpc.fused_mul": "cuda", "mpc.fused_trunc": "cuda",
          "mpc.fused_compare": "cuda", "mpc.fused_max_step": "cuda"}
 SCAN = dict(KNOBS, **{"functions.max_method": "scan_reduction",

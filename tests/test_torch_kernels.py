@@ -71,28 +71,31 @@ def test_philox_refuses_bad_arguments():
 def test_philox_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from curl_tpu_torch.kernels.keys import hold
+
     keys = [3, 5]
+    # the segments' keys, in slots of one key table
+    ref, k11, k1_8, k357, k13 = hold(keys, (11,), tuple(range(1, 9)), (3, 5, 7), (13,))
     plain = torch.arange(1001, dtype=torch.int64, device="cuda")
     for mode, kw in (("draw", {"kbits": 17}), ("przs", {}), ("share", {"plain": plain}),
                      ("share_lane", {"plain": torch.stack([plain, -plain]), "src": 1})):
-        got = philox.philox(mode, keys, 4, 1001, device="cuda", **kw)
+        got = philox.philox(mode, ref, 4, 1001, device="cuda", **kw)
         assert torch.equal(got, philox.plain_philox(mode, keys, 4, 1001, device="cuda", **kw))
     # one grouped launch of mixed segments: every kind, additive and XOR,
     # odd n, n = 1, rows 1-8, emitted draws
     lane = torch.stack([plain, -plain, plain + 7])
     S = philox.Segment
     segments = [
-        S("draw", (11,), 1, 1), S("draw", tuple(range(1, 9)), 2, 1001, kbits=20),
-        S("zero", (3, 5), 3, 1001), S("zero", (3, 5, 7), 4, 999, how="xor", kbits=1),
-        S("plain", (3, 5), 5, 1001, plain=plain, src=1),
-        S("plain", (3, 5), 6, 1001, how="xor", plain=plain),
-        S("plain_lane", (3, 5, 7), 7, 1001, plain=lane, src=2),
-        S("plain_lane", (3, 5, 7), 8, 1001, how="xor", kbits=64, plain=lane, src=1),
-        S("fresh", (3, 5), 9, 1001, dealer=13, draw_counter=1, emit=True),
-        S("fresh", (3, 5), 10, 1, dealer=13, draw_counter=2, draw_kbits=1),
-        S("fresh", (3, 5), 11, 1001, how="xor", dealer=13, draw_counter=2, draw_kbits=1),
-        S("fresh", tuple(range(1, 9)), 12, 257, dealer=13, draw_counter=3, draw_kbits=48,
-          emit=True),
+        S("draw", k11, 1, 1), S("draw", k1_8, 2, 1001, kbits=20),
+        S("zero", ref, 3, 1001), S("zero", k357, 4, 999, how="xor", kbits=1),
+        S("plain", ref, 5, 1001, plain=plain, src=1),
+        S("plain", ref, 6, 1001, how="xor", plain=plain),
+        S("plain_lane", k357, 7, 1001, plain=lane, src=2),
+        S("plain_lane", k357, 8, 1001, how="xor", kbits=64, plain=lane, src=1),
+        S("fresh", ref, 9, 1001, dealer=k13, draw_counter=1, emit=True),
+        S("fresh", ref, 10, 1, dealer=k13, draw_counter=2, draw_kbits=1),
+        S("fresh", ref, 11, 1001, how="xor", dealer=k13, draw_counter=2, draw_kbits=1),
+        S("fresh", k1_8, 12, 257, dealer=k13, draw_counter=3, draw_kbits=48, emit=True),
     ]
     got = philox.philox_group(segments, "cuda")
     for seg, a, b in zip(segments, got, philox.plain_philox_group(segments, "cuda")):
@@ -102,23 +105,26 @@ def test_philox_kernel_matches_plain_on_card():
 
 def test_fused_kernels_refuse_cpu_tensors_and_bad_arguments():
     from curl_tpu_torch.kernels import fused_mul, max_step
+    from curl_tpu_torch.kernels.keys import hold
 
     x = torch.zeros(2, 8, dtype=torch.int64)
+    k, two = hold((1,), (1, 2))
     with pytest.raises(ValueError):
-        fused_mul.launch("mul", "egk", 16, x, x, 1, 0)
+        fused_mul.launch("mul", "egk", 16, x, x, k, 0)
     with pytest.raises(ValueError):
-        max_step.launch_ltz(x, 1, 0)
+        max_step.launch_ltz(x, k, 0)
     with pytest.raises(ValueError):
-        max_step.launch_max_step(x, x, 1, 0)
+        max_step.launch_max_step(x, x, k, 0)
     bad = (
-        lambda: fused_mul.plain("cube", "egk", 16, x, None, 1, 0),   # unknown op
-        lambda: fused_mul.plain("mul", "egk", 16, x, None, 1, 0),    # mul without y
-        lambda: fused_mul.plain("trunc", "none", 0, x, None, 1, 0),  # trunc is EGK alone
-        lambda: fused_mul.plain("square", "egk", 62, x, None, 1, 0),  # m outside 0..61
-        lambda: fused_mul.plain("square", "egk", 16, x, None, 1, 1 << 48),  # count > 48 bits
-        lambda: fused_mul.plain("square", "egk", 16, x[:1], None, 1, 0),  # one party
-        lambda: max_step.plain_ltz(x.to(torch.int32), 1, 0),
-        lambda: max_step.plain_max_step(x, x, 1, -1),
+        lambda: fused_mul.plain("cube", "egk", 16, x, None, k, 0),   # unknown op
+        lambda: fused_mul.plain("mul", "egk", 16, x, None, k, 0),    # mul without y
+        lambda: fused_mul.plain("trunc", "none", 0, x, None, k, 0),  # trunc is EGK alone
+        lambda: fused_mul.plain("square", "egk", 62, x, None, k, 0),  # m outside 0..61
+        lambda: fused_mul.plain("square", "egk", 16, x, None, k, 1 << 48),  # count > 48 bits
+        lambda: fused_mul.plain("square", "egk", 16, x[:1], None, k, 0),  # one party
+        lambda: fused_mul.plain("square", "egk", 16, x, None, two, 0),  # a key of two slots
+        lambda: max_step.plain_ltz(x.to(torch.int32), k, 0),
+        lambda: max_step.plain_max_step(x, x, k, -1),
     )
     for call in bad:
         with pytest.raises(ValueError):
@@ -133,7 +139,9 @@ def test_fused_kernels_match_plain_on_card():
 
     g = torch.Generator().manual_seed(1)
     r = lambda *s: torch.randint(-(2 ** 40), 2 ** 40, s, generator=g).cuda()  # noqa: E731
-    key = 0x1234_5678_9ABC_DEF0
+    from curl_tpu_torch.kernels.keys import hold
+
+    key, = hold((0x1234_5678_9ABC_DEF0,))
     # an odd n; a broadcast column (LayerNorm's rescale); a transposed x
     # read in place through its strides
     for x, y in ((r(2, 1031), r(2, 1031)), (r(2, 33, 65), r(2, 33, 1)),

@@ -305,9 +305,12 @@ def test_open_kernel_matches_plain_on_card():
 def test_ltz_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the max_step kernel has no CPU version")
+    from curl_tpu_torch.kernels.keys import hold
+
+    key, = hold((KEY,))
     for shape in ((2, 1, 64, 3072), (2, 100003), (2, 7)):
         d = _i64(shape, 4).cuda()
-        want = max_step.plain_ltz(d, KEY, 9)
-        assert torch.equal(max_step.launch_ltz(d, KEY, 9), want)
+        want = max_step.plain_ltz(d, key, 9)
+        assert torch.equal(max_step.launch_ltz(d, key, 9), want)
         strided = d.transpose(-1, -2).contiguous().transpose(-1, -2)
-        assert torch.equal(max_step.launch_ltz(strided, KEY, 9), want)
+        assert torch.equal(max_step.launch_ltz(strided, key, 9), want)

@@ -15,6 +15,7 @@ with the same CommStats. The kernel itself runs only on a card
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ import curl_tpu_torch as ct
 from curl_tpu_torch import comm
 from curl_tpu_torch import random as rng
 from curl_tpu_torch.kernels import philox
+from curl_tpu_torch.kernels.keys import KeyRef, KeyTable, hold
 from curl_tpu_torch.mpc.primitives.arithmetic import ArithmeticSharedTensor
 from curl_tpu_torch.mpc.primitives.beaver import _RING_OPS
 from curl_tpu_torch.mpc.primitives.binary import BinarySharedTensor
@@ -42,14 +44,14 @@ def u64(x: int) -> int:
 
 def per_call(seg: philox.Segment) -> torch.Tensor:
     """One segment as the per-call dealer code computed it."""
-    keys = list(seg.keys)
+    keys = list(seg.keys.values())
     P = len(keys)
     if seg.what == "draw":
         return philox.plain_philox("draw", keys, seg.counter, seg.n, kbits=seg.kbits,
                                    device="cpu")
     v = seg.plain
     if seg.what == "fresh":  # random.random_kbit(shape, draw_kbits, "dealer")
-        v = philox.plain_philox("draw", [seg.dealer], seg.draw_counter, seg.n,
+        v = philox.plain_philox("draw", [seg.dealer.value()], seg.draw_counter, seg.n,
                                 kbits=seg.draw_kbits, device="cpu")[0]
     if seg.how == "add":  # random.przs_arithmetic / przs_share
         if seg.what == "zero":
@@ -69,14 +71,17 @@ def per_call(seg: philox.Segment) -> torch.Tensor:
     return (out, v) if seg.emit else out
 
 
-def by_definition(seg: philox.Segment) -> np.ndarray:
-    """The segment from the streams alone, in numpy uint64."""
-    st = [philox.stream(k, seg.counter, seg.n, "cpu").numpy().view(np.uint64) for k in seg.keys]
+def by_definition(seg: philox.Segment, keys=None, dealer=None) -> np.ndarray:
+    """The segment from the streams alone, in numpy uint64: of ``keys`` and
+    ``dealer`` where given, else of what its slots hold."""
+    keys = seg.keys.values() if keys is None else keys
+    st = [philox.stream(k, seg.counter, seg.n, "cpu").numpy().view(np.uint64) for k in keys]
     if seg.what == "draw":
         return np.stack([s >> np.uint64(64 - seg.kbits) for s in st])
     P = len(st)
     if seg.what == "fresh":
-        v = philox.stream(seg.dealer, seg.draw_counter, seg.n, "cpu").numpy().view(np.uint64)
+        dealer = seg.dealer.value() if dealer is None else dealer
+        v = philox.stream(dealer, seg.draw_counter, seg.n, "cpu").numpy().view(np.uint64)
         v = v >> np.uint64(64 - seg.draw_kbits)
     elif seg.what == "plain":
         v = seg.plain.numpy().view(np.uint64)
@@ -96,7 +101,9 @@ def by_definition(seg: philox.Segment) -> np.ndarray:
     return (np.stack(rows), v) if seg.emit else np.stack(rows)
 
 
-def random_segment(g: np.random.Generator) -> philox.Segment:
+def random_segment(g: np.random.Generator, table: KeyTable, i: int) -> philox.Segment:
+    """A random segment, its keys in slots of ``table`` (segment ``i``'s
+    dealer key at slot i * (MAX_ROWS + 1), its rows' keys after it)."""
     what = str(g.choice(list(philox.WHATS)))
     how = "add" if what == "draw" else str(g.choice(philox.HOWS))
     n = int(g.choice([1, 2, 3, 31, 64, 257, 1000, 1001]))
@@ -109,18 +116,27 @@ def random_segment(g: np.random.Generator) -> philox.Segment:
         plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=n, dtype=np.int64))
     elif what == "plain_lane":
         plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=(rows, n), dtype=np.int64))
+    counter = int(g.integers(0, 2 ** 62))
+    base = i * (philox.MAX_ROWS + 1)
+    table.write([int(g.integers(0, 2 ** 63)) if what == "fresh" else 0] + list(keys), base)
     return philox.Segment(
-        what, keys, int(g.integers(0, 2 ** 62)), n, how=how, kbits=kbits, src=src, plain=plain,
-        dealer=int(g.integers(0, 2 ** 63)) if what == "fresh" else 0,
+        what, table.ref(base + 1, rows), counter, n, how=how, kbits=kbits, src=src, plain=plain,
+        dealer=table.ref(base) if what == "fresh" else None,
         draw_counter=int(g.integers(0, 2 ** 40)),
         draw_kbits=int(g.choice([1, 12, 48, 64])) if what == "fresh" else 64,
         emit=what == "fresh" and bool(g.integers(0, 2)))
 
 
+def random_group(g: np.random.Generator) -> list:
+    """MAX_SEGMENTS random segments, their keys in one table."""
+    table = KeyTable(philox.MAX_SEGMENTS * (philox.MAX_ROWS + 1))
+    return [random_segment(g, table, i) for i in range(philox.MAX_SEGMENTS)]
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_plain_group_is_the_per_call_sequence(seed):
     g = np.random.default_rng(seed)
-    segments = [random_segment(g) for _ in range(philox.MAX_SEGMENTS)]
+    segments = random_group(g)
     got = philox.plain_philox_group(segments, device="cpu")
     assert len(got) == len(segments)
     for seg, out in zip(segments, got):
@@ -129,7 +145,7 @@ def test_plain_group_is_the_per_call_sequence(seed):
             (out, value), (want, want_value), (defined, defined_value) = out, want, defined
             assert value.shape == (seg.n,) and torch.equal(value, want_value), seg.signature()
             assert np.array_equal(value.numpy().view(np.uint64), defined_value)
-        assert out.shape == (len(seg.keys), seg.n) and out.dtype == torch.int64
+        assert out.shape == (seg.rows, seg.n) and out.dtype == torch.int64
         assert torch.equal(out, want), seg.signature()
         assert np.array_equal(out.numpy().view(np.uint64), defined), seg.signature()
 
@@ -139,9 +155,8 @@ def test_group_covers_every_kind_and_shape():
     seen = set()
     for seed in range(4):
         g = np.random.default_rng(seed)
-        for _ in range(philox.MAX_SEGMENTS):
-            s = random_segment(g)
-            seen |= {("what", s.what), ("how", s.how), ("n", s.n), ("rows", len(s.keys)),
+        for s in random_group(g):
+            seen |= {("what", s.what), ("how", s.how), ("n", s.n), ("rows", s.rows),
                      ("src", s.src), ("kbits", s.kbits), ("emit", s.emit)}
     for key in [("what", w) for w in philox.WHATS] + [("how", h) for h in philox.HOWS] + [
             ("n", 1), ("rows", 1), ("rows", 8), ("src", 0), ("src", 1), ("kbits", 1),
@@ -150,7 +165,8 @@ def test_group_covers_every_kind_and_shape():
 
 
 def test_group_refuses_bad_segments():
-    keys = (3, 5)
+    keys, nine, dealer = hold((3, 5), (1,) * 9, (13,))
+    other, = hold((3, 5))
     bad = (
         [],                                                                 # no segment
         [philox.Segment("draw", keys, 0, 4)] * (philox.MAX_SEGMENTS + 1),   # too many
@@ -159,9 +175,13 @@ def test_group_refuses_bad_segments():
         [philox.Segment("plain", keys, 0, 4)],                              # no plain
         [philox.Segment("plain", keys, 0, 4, plain=torch.zeros(5, dtype=torch.int64))],
         [philox.Segment("zero", keys, 0, 4, emit=True)],                    # emit not fresh
-        [philox.Segment("fresh", keys, 0, 4, draw_kbits=0)],
-        [philox.Segment("draw", (1,) * 9, 0, 4)],                           # rows > 8
-        [philox.Segment("draw", (-1,), 0, 4)],                              # key not u64
+        [philox.Segment("fresh", keys, 0, 4, dealer=dealer, draw_kbits=0)],
+        [philox.Segment("fresh", keys, 0, 4)],                              # no dealer slot
+        [philox.Segment("fresh", keys, 0, 4, dealer=keys)],                 # dealer of 2 slots
+        [philox.Segment("draw", nine, 0, 4)],                               # rows > 8
+        [philox.Segment("draw", (3, 5), 0, 4)],                             # keys not slots
+        [philox.Segment("draw", keys, -1, 4)],                              # counter not u64
+        [philox.Segment("draw", keys, 0, 4), philox.Segment("draw", other, 0, 4)],  # 2 tables
         [philox.Segment("zero", keys, 0, 4, how="or")],
         [philox.Segment("zero", keys, 0, philox.MAX_N + 1)],                # n past 32 bits
     )
@@ -172,10 +192,11 @@ def test_group_refuses_bad_segments():
 
 def test_one_segment_group_is_the_first_slices_mode():
     keys = [u64(-7), 11]
+    ref, = hold(keys)
     plain = torch.arange(33, dtype=torch.int64) * 977
     for mode, kw in (("draw", {"kbits": 9}), ("przs", {}), ("share", {"plain": plain, "src": 1}),
                      ("share_lane", {"plain": torch.stack([plain, -plain]), "src": 1})):
-        assert torch.equal(philox.philox(mode, keys, 6, 33, device="cpu", **kw),
+        assert torch.equal(philox.philox(mode, ref, 6, 33, device="cpu", **kw),
                            philox.plain_philox(mode, keys, 6, 33, device="cpu", **kw))
 
 
@@ -205,7 +226,8 @@ VOCAB_CHUNK = 768 * 6283
 @pytest.mark.parametrize("sizes", [(VOCAB_CHUNK, 1, 63, 64 * 768), (1, 2, 3, 1001, 256 * 1024 + 1)])
 def test_plan_writes_every_pair_once(sizes):
     sms, per_sm = 132, philox.BLOCKS_PER_SM
-    segments = [philox.Segment("fresh", (1, 2), 0, n, emit=True) for n in sizes]
+    keys, dealer = hold((1, 2), (3,))
+    segments = [philox.Segment("fresh", keys, 0, n, dealer=dealer, emit=True) for n in sizes]
     p = philox.plan(segments, sms, per_sm)
     assert p["grid"] == sum(p["blocks"]) and p["block0"][0] == 0
     seen = [torch.zeros((seg.n + 1) // 2, dtype=torch.int64) for seg in segments]
@@ -223,9 +245,11 @@ def test_plan_writes_every_pair_once(sizes):
 
 
 def test_segment_table_fits_the_kernel_parameters():
-    # csrc/philox.cu's Group: MAX_SEGMENTS segments and a count, under 4 KB
-    assert ctypes.sizeof(philox._SegmentArgs) == 160
-    assert philox.MAX_SEGMENTS * (ctypes.sizeof(philox._SegmentArgs) + 4) + 8 <= 4096
+    # csrc/philox.cu's Group: the key table's address, MAX_SEGMENTS segments
+    # (each naming its keys by their first slot and its dealer's slot, no key
+    # itself) and a count, under 4 KB
+    assert ctypes.sizeof(philox._SegmentArgs) == 96
+    assert 8 + philox.MAX_SEGMENTS * (ctypes.sizeof(philox._SegmentArgs) + 4) + 8 <= 4096
 
 
 # ---------------------------------------------------------------------------
@@ -361,3 +385,112 @@ def test_binary_encrypt_and_przs_binary_match_per_call():
     assert torch.equal(rng.przs_binary((4, 7), bits=20), zb)
     assert torch.equal(BinarySharedTensor.encrypt(value, src=1).share, enc)
     assert torch.equal(BinarySharedTensor.encrypt(lane, src=2, per_party=True).share, enc_lane)
+
+
+# ---------------------------------------------------------------------------
+# key-table slots against literal keys
+# ---------------------------------------------------------------------------
+
+# every segment kind: (what, how); a bare draw is never XOR-shared
+KINDS = [(w, h) for w in philox.WHATS for h in philox.HOWS if w != "draw" or h == "add"]
+
+
+def slot_twins(what, how, rows, table):
+    """The literal keys and dealer key of a segment, and the segment naming
+    them by slots of ``table`` (rows from slot 1, the dealer's at slot 0)."""
+    g = np.random.default_rng(rows * 31 + len(what))
+    keys = tuple(int(k) * 2 + 1 for k in g.integers(0, 2 ** 63, size=rows))
+    dealer = int(g.integers(0, 2 ** 63))
+    n = 1001
+    plain = None
+    if what == "plain":
+        plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=n, dtype=np.int64))
+    elif what == "plain_lane":
+        plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=(rows, n), dtype=np.int64))
+    table.write([dealer] + list(keys))
+    slotted = philox.Segment(what, table.ref(1, rows), 5, n, how=how,
+                             kbits=20 if how == "xor" or what == "draw" else 64, src=rows - 1,
+                             plain=plain, dealer=table.ref(0) if what == "fresh" else None,
+                             draw_counter=77, draw_kbits=48 if what == "fresh" else 64,
+                             emit=what == "fresh")
+    return keys, dealer, slotted
+
+
+def _as_numpy(out):
+    """A segment's output (shares, or the pair of shares and v) in uint64."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return [o.cpu().numpy().view(np.uint64) for o in outs]
+
+
+def _outputs_equal(a, b):
+    a = list(a) if isinstance(a, (list, tuple)) else [a]
+    b = list(b) if isinstance(b, (list, tuple)) else [b]
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("rows", [2, 3])
+@pytest.mark.parametrize("what,how", KINDS)
+def test_plain_group_reads_slots_as_the_literal_keys(what, how, rows):
+    table = KeyTable(1 + philox.MAX_ROWS)
+    keys, dealer, slotted = slot_twins(what, how, rows, table)
+    want = by_definition(slotted, keys, dealer)
+    (got,) = philox.plain_philox_group([slotted], device="cpu")
+    assert _outputs_equal(_as_numpy(got), want), (what, how)
+    # the slots are read when the group runs: new keys, new streams
+    table.write([k ^ 1 for k in table.host])
+    (moved,) = philox.plain_philox_group([slotted], device="cpu")
+    assert _outputs_equal(_as_numpy(moved), by_definition(slotted))
+    assert not _outputs_equal(_as_numpy(moved), want)
+
+
+def test_session_segments_name_the_key_table():
+    ct.init(world_size=3, seed=9, device="cpu")
+    table = rng.TABLE
+    keys = rng.current_keys()
+    seg = rng.segment_fresh((4,), 64, 1, 2)
+    assert isinstance(seg.keys, KeyRef) and seg.keys.table is table
+    assert seg.keys.values() == tuple(keys["next"]) and seg.dealer.value() == keys["dealer"][0]
+    assert rng.segment_draw((4,), 64, "local", 3).keys.values() == tuple(keys["local"])
+    assert rng.segment_draw((4,), 64, "global", 3).keys.values() == tuple(keys["global"])
+    assert rng.fused_key().value() == keys["fused"][0]
+    ct.init(world_size=2, seed=10, device="cpu")
+    assert rng.TABLE is table  # written in place, never reallocated
+    assert seg.dealer.value() == rng.current_keys()["dealer"][0]
+
+
+def test_key_table_device_copy_is_written_in_place():
+    table = KeyTable(4)
+    table.write([1, 2 ** 64 - 1], 1)
+    dev = table.tensor("cpu")
+    assert dev.tolist() == [0, 1, -1, 0]
+    ptr = dev.data_ptr()
+    table.write([7], 3)
+    assert table.tensor("cpu").data_ptr() == ptr and dev.tolist() == [0, 1, -1, 7]
+    assert table.host == [0, 1, 2 ** 64 - 1, 7]
+    with pytest.raises(ValueError):
+        table.write([1, 2], 3)
+    with pytest.raises(ValueError):
+        table.ref(3, 2)
+
+
+@pytest.mark.cuda
+def test_group_kernel_reads_slots_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    table = KeyTable(1 + philox.MAX_ROWS)
+    for rows in (2, 3):
+        for what, how in KINDS:
+            keys, dealer, slotted = slot_twins(what, how, rows, table)
+            if slotted.plain is not None:
+                slotted = dataclasses.replace(slotted, plain=slotted.plain.cuda())
+            want = by_definition(dataclasses.replace(slotted, plain=None if slotted.plain is None
+                                                     else slotted.plain.cpu()), keys, dealer)
+            (got,) = philox.philox_group([slotted], "cuda")
+            (two,) = philox.philox_group([slotted, slotted], "cuda")[1:]
+            assert _outputs_equal(_as_numpy(got), want), (what, how, rows)
+            assert _outputs_equal(_as_numpy(two), want), (what, how, rows)
+            table.write([k ^ 1 for k in table.host])
+            (moved,) = philox.philox_group([slotted], "cuda")
+            (plain,) = philox.plain_philox_group([slotted], "cuda")
+            assert _outputs_equal(_as_numpy(moved), _as_numpy(plain))
+            assert not _outputs_equal(_as_numpy(moved), want)
