@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of curl_tpu_torch on one CUDA card: kernels, then the private
 2-party GPT-2 forward under the shipped configuration, under bench.py's
-kernel configuration, and with seed-compressed weights as bench.py builds
-them; then GPT-Neo 1.3B's geometry, seed-compressed; then both compressed
+kernel configuration, at batch 8 with Beaver-masked weight reuse, and with
+seed-compressed weights as bench.py builds them; then GPT-Neo 1.3B's
+geometry, seed-compressed; then private greedy generation with a causal
+GPT-2, eagerly and captured whole as one CUDA graph; then both compressed
 forwards captured as CUDA graphs by ``compile_parties``.
 
     python3 chip_smoke.py
@@ -49,6 +51,14 @@ without the final line):
               same readings and checks, launches of every kernel and op,
               the device busy share; then the same forward with the fused
               knobs off, whose rounds and bytes must be equal
+  4e. batch8  the same model under bench.py's kernel configuration with
+              models.head_chunk_positions 64, on 8 x 64 token ids: the
+              embedding table and the LM head Beaver-masked once a forward
+              (one mask draw and one delta reveal each) and reused by each
+              chunk of 64 positions (one 3-pair ring_mm_acc launch a
+              chunk); latency, rounds and bytes, launches (the 3-pair ones
+              apart), peak memory, each row's final-LayerNorm hidden state
+              against float64 under the bound and the planted fault
   4c. compressed  bench.py's default run: the same weights and tokens
               through GPT.build_compressed (8 vocab chunks) under bench.py's
               kernel configuration: build time, resident share bytes (at
@@ -67,8 +77,26 @@ without the final line):
               linears, weights made block by block from a numpy seed: the
               same readings and open checks, against its own pre-declared
               bound
+  7. generate private greedy generation with a causal GPT-2 (phase 4's
+              weights, materialized), a 60-token prompt as an encrypted
+              one-hot buffer (1, 64, 50257), 4 tokens: every weight
+              Beaver-masked once a call, then 4 decode steps (the buffer
+              times the masked table, 12 causal blocks, the LM head, the
+              private argmax of the last position's logits by
+              scan_reduction and eq, written into the buffer); run eagerly
+              step by step (each step's logits revealed), then captured as
+              one CUDA graph by compile_parties and replayed: every written
+              row a one-hot, each choice the argmax of its step's logits,
+              the replay bit-identical to the eager loop under the same
+              keys and counter, the same seed twice identical, two seeds
+              different deltas, the capture's CommStats and launches equal
+              to the eager loop's, each step's logits against float64
+              under a bound fixed from CPU runs and a planted fault (one
+              block left out) that fails it; rounds, bytes and latency a
+              token, capture time and graph memory. It runs after phase
+              4d, so that phase 5 holds its launch signatures
   5. path     every launch signature (shapes, strides, op) that any of the
-              forwards of phases 4, 4b, 4c and 4d passed to ring_mm, philox,
+              forwards of phases 4, 4b, 4e, 4c, 4d and 7 passed to ring_mm, philox,
               fused_mul, ltz, max_step and seed_expand (expand and open), on
               fresh operands of the same layout: bit for bit against plain,
               timed with the L2 cache flushed before each call, and summed
@@ -95,10 +123,12 @@ without the final line):
               by kernel equal to the eager forward's
 
 It prints one JSON line with every kernel's numbers (launches, time,
-plain time and bound of one phase 4c forward, the slice's main path, under
-``paths`` the same for each phase's forward, and under ``captured`` the
-launches of each phase 6 capture), then the card's name and power limit,
-then ``{"ok": true, "device": {...}}`` as the last line.
+plain time and bound of one phase 4c forward, the main path of the slices
+that ported the kernels, or for the 3-pair ring_mm_acc entry of phase 7's
+generation; under ``paths`` the same for each phase's run, and under
+``captured`` the launches of each phase 6 and phase 7 capture), then the
+card's name and power limit, then ``{"ok": true, "device": {...}}`` as the
+last line.
 """
 
 from __future__ import annotations
@@ -201,6 +231,21 @@ HEAD_CHUNKS = 8
 # the sound reading is expected near 0.16-0.17 and the planted fault near
 # 0.23-0.25; the bound sits between them.
 NEO_SCALE_FREE_L2 = 0.20
+# Phase 4e: batch 8 with the embedding and the head over chunks of 64
+# positions (the Beaver-masked reuse), bench.py's batch
+BATCH8 = 8
+# Phase 7: the generation's prompt length and generated tokens, and its
+# bound on the scale-free relative L2 error of each step's last-position
+# logits (1 x 50257) against the float64 forward of the same buffer, fixed
+# from CPU runs before the first run of the phase (PERF.md, "PR 9"). The
+# same generation on the CPU (12 blocks, vocab 1000, the same seeds and
+# prompt; widths 64, 128 and 256; scripts/torch_generate_bound.py) read at
+# most 0.146, 0.149 and 0.147 over its 4 steps, and one private step
+# without the least-felt block 0.223, 0.233 and 0.235 (the plaintext
+# without it 0.193-0.196); the bound sits between them.
+PROMPT_LEN = 60
+GEN_TOKENS = 4
+GENERATE_LOGITS_SCALE_FREE_L2 = 0.19
 
 
 def log(msg):
@@ -1145,13 +1190,16 @@ MAX_STEP_TAGS = ("max_step", "fold", "butterfly", "butterfly_unpaired")
 
 
 def read_launches():
-    """Launches since the last reset: by kernel (the JSON line's names),
-    fused_mul by op+truncation (a chain with "+chain") and max_step by tag,
-    and philox by mode."""
+    """Launches since the last reset: by kernel (the JSON line's names;
+    ring_mm_acc's 3-pair launches also under MASKED), fused_mul by
+    op+truncation (a chain with "+chain") and max_step by tag, and philox
+    by mode."""
     from curl_tpu_torch.kernels import fused_mul, max_step, philox, ring_mm, seed_expand
 
     steps = {k: n for k, n in max_step.launches.items() if k != "ltz"}
-    by_kernel = {"ring_mm": ring_mm.launches.get(1, 0), "ring_mm_acc": ring_mm.launches.get(2, 0),
+    by_kernel = {"ring_mm": ring_mm.launches.get(1, 0),
+                 "ring_mm_acc": sum(n for k, n in ring_mm.launches.items() if k >= 2),
+                 MASKED: ring_mm.launches.get(3, 0),
                  "philox": sum(philox.launches.values()),
                  "fused_mul": sum(fused_mul.launches.values()),
                  "ltz": max_step.launches.get("ltz", 0),
@@ -1171,9 +1219,10 @@ def recorded_launches(calls):
     """The recorded signatures' launches in read_launches' form."""
     from curl_tpu_torch.kernels import max_step
 
-    by_kernel = {"ring_mm": 0, "ring_mm_acc": 0}
+    by_kernel = {"ring_mm": 0, "ring_mm_acc": 0, MASKED: 0}
     for sig, n in calls["ring_mm"].items():
         by_kernel["ring_mm" if len(sig) == 1 else "ring_mm_acc"] += n
+        by_kernel[MASKED] += n if len(sig) == 3 else 0
     for kind in ("philox", "ltz", "seed_expand", "open"):
         by_kernel[kind] = sum(calls[kind].values())
     by_op = {}
@@ -1196,7 +1245,7 @@ def recorded_launches(calls):
             add("butterfly_unpaired", n * sig[0])
     by_kernel["fused_mul"] = sum(n for tag, n in by_op.items() if "+" in tag)
     by_kernel["max_step"] = sum(n for tag, n in by_op.items() if "+" not in tag)
-    return {k: by_kernel[k] for k in PATH_FAMILIES}, by_op
+    return {k: by_kernel[k] for k in PATH_FAMILIES + (MASKED,)}, by_op
 
 
 def private_hidden(model, xe, skip=None):
@@ -1449,7 +1498,8 @@ def run_bench_forward(fw):
     if fault["scale_free_l2"] <= limit:
         failures.append(f"bench planted fault ({fmt_stats(fault)}) passes the bound {limit}")
     # the materialized model expands and opens no compressed share
-    missing = [k for k, n in launches.items() if n == 0 and k not in ("seed_expand", "open")]
+    missing = [k for k, n in launches.items()
+               if n == 0 and k not in ("seed_expand", "open", MASKED)]
     missing += [op for op in ("mul", "square", "trunc")
                 if not any(tag.startswith(op + "+") for tag in by_op)]
     missing += unlaunched_chains(by_op)
@@ -1464,27 +1514,117 @@ def run_bench_forward(fw):
     return launches, by_op, calls, failures, stats
 
 
+@contextlib.contextmanager
+def counting_masks():
+    """Record the shape of every operand ``beaver.mask_operand`` masks while
+    the context is open."""
+    from curl_tpu_torch.mpc.primitives import beaver
+
+    masked, mask_operand = [], beaver.mask_operand
+
+    def counted(y):
+        out = mask_operand(y)
+        if out is not y:
+            masked.append(tuple(y.shape))
+        return out
+
+    beaver.mask_operand = counted
+    try:
+        yield masked
+    finally:
+        beaver.mask_operand = mask_operand
+
+
+def run_batch8(fw):
+    """Phase 4e: phase 4's model at batch 8 under bench.py's kernel
+    configuration with the embedding and the LM head over chunks of 64
+    positions, through ``model.functional()`` (each call binds the plain
+    shares, so each forward masks the table and the head's weight anew)."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.models import GPT2
+
+    model, sd = fw["model"], fw["sd"]
+    blocks, heads, vocab = (GPT2.GEOM[k] for k in ("num_blocks", "num_heads", "vocab_size"))
+    tokens = np.random.default_rng(0).integers(0, 1000, size=(BATCH8, SEQ)).astype(np.float64)
+    ids = tokens.astype(np.int64)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ref = plain_gpt_forward(sd, ids, heads, blocks, dev, head=False)[0].cpu().numpy()
+    # the planted fault: the block whose absence the plaintext batch feels least
+    skip_err = [hidden_stats(plain_gpt_forward(sd, ids, heads, blocks, dev, skip=j,
+                                               head=False)[0].cpu().numpy(),
+                             ref)["scale_free_l2"] for j in range(blocks)]
+    j = int(np.argmin(skip_err))
+    log(f"[batch8] float64 reference and {blocks} forwards with one block left out in "
+        f"{time.perf_counter() - t0:.1f} s; scale-free rel L2 without one block: min "
+        f"{skip_err[j]:.5f} (block {j}), max {max(skip_err):.5f}")
+    apply_fn, params = model.functional()
+    xe = ct.cryptensor(tokens, precision=0)
+    config = dict(BENCH_CONFIG, **{"models.head_chunk_positions": SEQ})
+    with cfg.temp_override(config):
+        with counting_masks() as masked:
+            res, failures = drive("batch8", model, xe, reps=2, call=lambda: apply_fn(params, xe),
+                                  unlaunched=("seed_expand", "open"))
+        model.bind_params(params)
+        fault = hidden_stats(private_hidden(model, xe, skip=j).get_plain_text(), ref)
+    model.bind_params(params)
+    rows = [hidden_stats(res["hidden"][i], ref[i]) for i in range(BATCH8)]
+    launches = res["launches"]
+    log(f"[batch8] masked in each forward: {masked[:2]} ({len(masked)} in all forwards); "
+        f"ring_mm_acc 3-pair launches {launches[MASKED]} of {launches['ring_mm_acc']}")
+    for i, st in enumerate(rows):
+        log(f"[batch8] row {i} final-LN hidden: {fmt_stats(st)}")
+    log(f"[batch8] planted fault, private forward without block {j}: {fmt_stats(fault)}")
+    limit = HIDDEN_STATE_SCALE_FREE_L2
+    want_masked = [(vocab, GPT2.GEOM["embed_dim"])] * 2
+    if res["out"].shape != (BATCH8, SEQ, vocab):
+        failures.append(f"batch8 output {res['out'].shape} != ({BATCH8}, {SEQ}, {vocab})")
+    bad = [i for i, st in enumerate(rows)
+           if st["max_abs"] > HIDDEN_STATE_ATOL or st["scale_free_l2"] > limit]
+    if bad:
+        failures.append(f"batch8 rows {bad} exceed the hidden-state bounds (max "
+                        f"{HIDDEN_STATE_ATOL}, scale-free rel L2 {limit})")
+    if fault["scale_free_l2"] <= limit:
+        failures.append(f"batch8 planted fault ({fmt_stats(fault)}) passes the bound {limit}")
+    if not masked or masked != want_masked * (len(masked) // 2):
+        failures.append(f"batch8 masked {masked}, not the table and the head's weight once "
+                        "a forward")
+    if launches[MASKED] != 2 * BATCH8:
+        failures.append(f"batch8 made {launches[MASKED]} 3-pair ring_mm_acc launches, not one "
+                        f"a chunk of {SEQ} positions for the table and the head ({2 * BATCH8})")
+    return res, failures
+
+
 # ---------------------------------------------------------------------------
 # Phases 4c and 4d: seed-compressed models (GPT.build_compressed)
 # ---------------------------------------------------------------------------
 
-def drive(tag, model, xe, reps):
-    """A warm-up forward, recording the signature of every kernel launch
-    and keeping the final-LayerNorm hidden state (a hook on ``model.ln``),
-    then ``reps`` forwards; the last one runs with the launch counts,
-    CommStats and peak memory reset just before it and read just after.
-    Then one profiled forward."""
+def drive(tag, model, xe, reps, call=None, unlaunched=None):
+    """A warm-up forward (``call()`` in place of ``model(xe)`` where given),
+    recording the signature of every kernel launch and keeping the
+    final-LayerNorm hidden state (a hook on ``model.ln``, its chunks of
+    positions joined), then ``reps`` forwards; the last one runs with the
+    launch counts, CommStats and peak memory reset just before it and read
+    just after. Then one profiled forward. Every kernel but those in
+    ``unlaunched`` (by default the 3-pair ring_mm_acc) must have launched."""
     import curl_tpu_torch as ct
+
+    unlaunched = (MASKED,) if unlaunched is None else unlaunched
+    if call is None:
+        def call():
+            return model(xe)
 
     seen = []
     hook = model.ln.register_forward_hook(lambda mod, inp, out: seen.append(out))
     t0 = time.perf_counter()
     try:
         with recording_launches() as calls:
-            out = model(xe)
+            out = call()
     finally:
         hook.remove()
-    hidden = seen[0].get_plain_text().reshape(out.shape[:-1] + (-1,))
+    hidden = np.concatenate([h.get_plain_text().reshape(-1, h.shape[-1]) for h in seen])
+    hidden = hidden.reshape(out.shape[:-1] + (-1,))
     log(f"[{tag}] warm-up forward {time.perf_counter() - t0:.2f} s")
     lat = []
     for i in range(reps):
@@ -1496,7 +1636,7 @@ def drive(tag, model, xe, reps):
             held = torch.cuda.memory_allocated()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = model(xe)
+        out = call()
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         if last:
@@ -1510,11 +1650,12 @@ def drive(tag, model, xe, reps):
     log(f"[{tag}] one forward: launches {launches}; fused_mul by op {by_op}")
     log(f"[{tag}] peak device memory {peak / 2**30:.2f} GiB in the forward, "
         f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before it")
-    profile_forward(model, xe, min(lat))
+    profile_forward(model, xe, min(lat), call=call)
     failures = []
     if not np.isfinite(out).all() or not np.isfinite(hidden).all():
         failures.append(f"{tag} output or final-LN hidden state is not finite")
-    missing = [k for k, n in launches.items() if n == 0] + unlaunched_chains(by_op)
+    missing = [k for k, n in launches.items() if n == 0 and k not in unlaunched]
+    missing += unlaunched_chains(by_op)
     if missing:
         failures.append(f"{tag} forward launched no {missing}: {launches}, {by_op}")
     if recorded_launches(calls) != (launches, by_op):
@@ -1932,7 +2073,8 @@ def run_captured(path, res):
             == (res["stats"]["rounds"], res["stats"]["bytes"]) and after == stats,
         "the capture launched every kernel the eager forward launched, as often":
             (launches, by_op) == (eager_launches, eager_by_op)
-            and all(n > 0 for n in launches.values()) and not unlaunched_chains(by_op),
+            and all(n > 0 for k, n in launches.items() if k != MASKED)
+            and not unlaunched_chains(by_op),
     }
     for seed, out in ((CAPTURE_SEED, first), (CAPTURE_SEED + 1, other)):
         st = hidden_stats(hidden_of(out), res["ref"])
@@ -1953,6 +2095,226 @@ def run_captured(path, res):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: private greedy generation, eagerly and captured (compile_parties)
+# ---------------------------------------------------------------------------
+
+GENERATE_SEED = 201  # the capture's seed; the replays take the next ones
+GENERATE_REPLAYS = 3
+
+
+def one_hot_rows(rows, tol=2.0 ** -12):
+    """Whether every row has one lane within ``tol`` of 1 and every other
+    lane within ``tol`` of 0."""
+    rows = np.sort(np.asarray(rows).reshape(-1, rows.shape[-1]), axis=-1)
+    return bool(np.all(np.abs(rows[:, -1] - 1) <= tol) and np.all(np.abs(rows[:, :-1]) <= tol))
+
+
+def run_generate(sd):
+    """Phase 7: the slice's path. Phase 4's weights in a causal GPT-2,
+    materialized, a 60-token prompt, 4 tokens, under bench.py's kernel
+    configuration: the generator captured by compile_parties (counts reset
+    just before the capture and read just after) and replayed at fresh
+    seeds; then the same loop eagerly, step by step, under the capture
+    seed's keys from the capture's draw counter (counts reset just before it
+    and read just after), each step's last-position logits revealed and held
+    to float64; then one step without a block, the planted fault."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch import random as crandom
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.models import GPT2, load_numpy_state_dict
+    from curl_tpu_torch.models import generate as gen
+
+    heads, blocks, vocab = (GPT2.GEOM[k] for k in ("num_heads", "num_blocks", "vocab_size"))
+    ct.init(world_size=2, seed=SEED)
+    t0 = time.perf_counter()
+    model = load_numpy_state_dict(GPT2(seq_len=SEQ, causal=True), sd).encrypt(src=0)
+    params = model.params_pytree()
+    prompt = np.random.default_rng(0).integers(0, 1000, size=(PROMPT_LEN,))
+    buf0 = np.zeros((1, SEQ, vocab))
+    buf0[0, np.arange(PROMPT_LEN), prompt] = 1.0
+    be = ct.cryptensor(buf0)
+    forward = gen.build_generator(model, PROMPT_LEN, GEN_TOKENS)
+    sel, wr = forward.masks
+    torch.cuda.synchronize()
+    log(f"[generate] causal GPT-2 built and encrypted, prompt of {PROMPT_LEN} tokens shared as a "
+        f"(1, {SEQ}, {vocab}) one-hot in {time.perf_counter() - t0:.1f} s")
+
+    def run(p, buf):
+        # the plain shares bound on every call, so that every call (the
+        # runner's warm-up and capture included) masks the weights anew
+        model.bind_params(p)
+        out = forward(buf)
+        return out, model.tok_embed.weight._tensor.delta[:4], model.fc.weight._tensor.delta[:4]
+
+    def eager_loop(seed, counter, record=False):
+        """The generator step by step under ``seed``'s keys from draw
+        counter ``counter``: (buffer, each step's last logits, host s)."""
+        resume = crandom.counter()
+        crandom.set_counter(counter)
+        lasts = []
+        with ct.parallel.mpc_context(crandom.make_party_keys(seed, 2), 2), \
+                (recording_launches() if record else contextlib.nullcontext()) as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.bind_params(params)
+            model.premask_for_reuse()
+            buf = be
+            for g in range(GEN_TOKENS):
+                buf, last = gen.decode_step(model, buf, sel[g], wr[g])
+                lasts.append(last)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        crandom.set_counter(resume)
+        return buf, lasts, secs, calls
+
+    with cfg.temp_override(BENCH_CONFIG):
+        # a warm-up of the loop: builds the constants, records every launch
+        # signature for phase 5
+        _, _, warm_s, calls = eager_loop(GENERATE_SEED, crandom.counter(), record=True)
+        log(f"[generate] warm-up eager loop {warm_s:.2f} s")
+        # the capture
+        step = ct.compile_parties(run, 2)
+        model.bind_params(params)  # the warm-up's masks go before the capture
+        gc.collect()
+        reset_launches()
+        ct.reset_communication_stats()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = step(GENERATE_SEED, params, be)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches, by_op, _ = read_launches()
+        stats = ct.get_communication_stats()
+        graph_bytes = torch.cuda.memory_allocated() - held
+        pool_bytes = torch.cuda.memory_reserved() - reserved
+        lat, other = [], None
+        for i in range(GENERATE_REPLAYS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(GENERATE_SEED + 1 + i, params, be)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            other = out if other is None else other
+        again = step(GENERATE_SEED, params, be)
+        after = ct.get_communication_stats()
+        peak = torch.cuda.max_memory_allocated() - held
+        busy = profile_forward(None, None, min(lat), tag="profile, captured generate", top=6,
+                               call=lambda: step(GENERATE_SEED + 9, params, be))
+        # the eager loop at the capture's keys and counter, counted alone
+        reset_launches()
+        ct.reset_communication_stats()
+        torch.cuda.reset_peak_memory_stats()
+        buf, lasts, eager_s, _ = eager_loop(GENERATE_SEED, step.counter)
+        eager_launches, eager_by_op, _ = read_launches()
+        eager_stats = ct.get_communication_stats()
+        eager_peak = torch.cuda.max_memory_allocated()
+        # the mask draws and reveals alone
+        ct.reset_communication_stats()
+        model.bind_params(params)
+        model.premask_for_reuse()
+        premask = ct.get_communication_stats()
+        model.bind_params(params)
+        final = buf.get_plain_text()
+        lasts = [last.get_plain_text()[0] for last in lasts]
+        # the planted fault: one step on the prompt without the block whose
+        # absence the plaintext logits feel least
+        ref0 = gen.plaintext_logits(sd, buf0, heads)[0, PROMPT_LEN - 1]
+        skip_err = [hidden_stats(gen.plaintext_logits(sd, buf0, heads, skip=j)[0, PROMPT_LEN - 1],
+                                 ref0)["scale_free_l2"] for j in range(blocks)]
+        j = int(np.argmin(skip_err))
+        kept = list(model.blocks._modules.items())
+        model.blocks._modules.pop(str(j))
+        try:
+            model.premask_for_reuse()
+            _, fault_last = gen.decode_step(model, be, sel[0], wr[0])
+        finally:
+            model.blocks._modules.clear()
+            model.blocks._modules.update(kept)
+            model.bind_params(params)
+        fault = hidden_stats(fault_last.get_plain_text()[0], ref0)
+
+    # each step against float64 on the same buffer, and its choice
+    bound = GENERATE_LOGITS_SCALE_FREE_L2
+    steps, choice_ok = [], True
+    for g in range(GEN_TOKENS):
+        b_now = final.copy()
+        b_now[:, PROMPT_LEN + g:] = 0.0
+        ref = gen.plaintext_logits(sd, np.round(b_now), heads)[0, PROMPT_LEN + g - 1]
+        st = hidden_stats(lasts[g], ref)
+        tok = int(final[0, PROMPT_LEN + g].argmax())
+        choice_ok &= bool(lasts[g][tok] >= lasts[g].max() - 2.0 ** -12)
+        steps.append(st)
+        log(f"[generate] step {g}: token {tok} (private logit {lasts[g][tok]:.5f}, max "
+            f"{lasts[g].max():.5f}; plaintext argmax {int(ref.argmax())}, plaintext margin of the "
+            f"choice {ref.max() - ref[tok]:.5f}); last logits against float64: {fmt_stats(st)}")
+    log(f"[generate] float64 logits without one block, scale-free rel L2: min {skip_err[j]:.5f} "
+        f"(block {j}), max {max(skip_err):.5f}; planted fault, a private step without block "
+        f"{j}: {fmt_stats(fault)}")
+    best = min(lat)
+    per = GEN_TOKENS
+    log(f"[generate] capture: first call {first_s:.2f} s: warm-up {step.warmup_s:.2f} s, capture "
+        f"and instantiation {step.capture_s:.2f} s, one replay; the graph keeps "
+        f"{step.constants} public constants; device memory allocated after it "
+        f"{graph_bytes / 2**30:.3f} GiB, reserved {pool_bytes / 2**30:.3f} GiB more (the "
+        f"graph's pool), peak {peak / 2**30:.3f} GiB above the {held / 2**30:.2f} GiB held "
+        "before")
+    log(f"[generate] replay latencies {', '.join(f'{x:.4f}' for x in lat)} s: best {best:.4f} s, "
+        f"{best / per:.4f} s a token; the eager loop {eager_s:.4f} s, {eager_s / per:.4f} s a "
+        f"token (peak {eager_peak / 2**30:.2f} GiB)")
+    log(f"[generate] one call: {stats['rounds']} rounds, {stats['bytes']} bytes per party "
+        f"({stats['rounds'] / per:.2f} rounds and {stats['bytes'] / per:.0f} bytes a token); the "
+        f"masks alone {premask['rounds']} rounds, {premask['bytes']} bytes; a decode step "
+        f"{(stats['rounds'] - premask['rounds']) / per:.2f} rounds, "
+        f"{(stats['bytes'] - premask['bytes']) / per:.0f} bytes")
+    log(f"[generate] the capture's launches {launches}; fused_mul and max_step by op {by_op}")
+    want_masked = 2 + 4 * blocks
+    checks = {
+        "every written row of the buffer a one-hot within 2^-12 (and the prompt's)":
+            one_hot_rows(final[0, :PROMPT_LEN + GEN_TOKENS]) and not final[0, PROMPT_LEN + GEN_TOKENS:].any(),
+        "each step's choice the argmax of its revealed logits, or tied within 2^-12": choice_ok,
+        "the replay bit-identical to the eager loop at the capture's keys and counter":
+            torch.equal(first[0].share, buf.share),
+        "the same seed twice bit-identical": all(torch.equal(u.share if hasattr(u, "share") else u,
+                                                             v.share if hasattr(v, "share") else v)
+                                                 for u, v in zip(first, again)),
+        "two seeds different deltas": not torch.equal(first[1], other[1])
+            and not torch.equal(first[2], other[2]),
+        "the capture's rounds and bytes equal the eager loop's, replays count none":
+            (stats["rounds"], stats["bytes"]) == (eager_stats["rounds"], eager_stats["bytes"])
+            and after == stats,
+        "the capture's launches by kernel equal the eager loop's":
+            (launches, by_op) == (eager_launches, eager_by_op),
+        "the loop launched every kernel but seed_expand, the 3-pair form included":
+            all(n > 0 for k, n in launches.items() if k not in ("seed_expand", "open"))
+            and not unlaunched_chains(by_op),
+        f"the masks: one delta reveal for each of the {want_masked} weights":
+            premask["rounds"] == want_masked,
+        "the recorded launches equal the counted ones": recorded_launches(calls) == (launches, by_op),
+        f"each step's logits within scale-free rel L2 {bound}":
+            all(np.isfinite(st["scale_free_l2"]) and st["scale_free_l2"] <= bound for st in steps),
+        f"the planted fault fails the bound {bound}": fault["scale_free_l2"] > bound,
+    }
+    for name, ok in checks.items():
+        log(f"[generate] {name}: {'held' if ok else 'FAILED'}")
+    failures = [f"generate: {name}" for name, ok in checks.items() if not ok]
+    if failures:
+        log(f"[generate] eager launches {eager_launches}, by op {eager_by_op}")
+    chains = {name: sum(n for t, n in by_op.items() if is_tag(t))
+              for name, is_tag in CHAIN_TAGS.items()}
+    res = dict(calls=calls, launches=eager_launches, by_op=eager_by_op,
+               captured=dict(launches=launches, chains=chains, best_s=best, eager_s=eager_s,
+                             busy_ms=busy, capture_s=step.capture_s, peak=peak,
+                             pool=pool_bytes))
+    del step, first, again, other, model, params, be
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: every kernel in the launch signatures the forward passed
 # ---------------------------------------------------------------------------
 
@@ -1968,7 +2330,7 @@ def _distinct_numel(shape, stride):
 PATH_KERNELS = (
     ("ring_mm", ("ring_mm",), lambda sig: len(sig) == 1, "curl_tpu/ops/pallas_ring_mm.py:149",
      "curl_tpu_torch/csrc/ring_mm.cu", None),
-    ("ring_mm_acc", ("ring_mm",), lambda sig: len(sig) == 2,
+    ("ring_mm_acc", ("ring_mm",), lambda sig: len(sig) >= 2,
      "curl_tpu/ops/pallas_ring_mm.py:324", "curl_tpu_torch/csrc/ring_mm.cu", None),
     ("philox", ("philox",), None, "curl_tpu/ops/pallas_przs.py:218 (_build2d; 1-D: :60 _build)",
      "curl_tpu_torch/csrc/philox.cu", None),
@@ -1992,7 +2354,13 @@ PATH_KERNELS = (
     ("max_step butterfly", ("butterfly",), None,
      "curl_tpu/ops/pallas_max_step.py:223 (scan_reduction's butterfly, "
      "curl_tpu/functions/maximum.py:373)", "curl_tpu_torch/csrc/max_step.cu", "max_step"),
+    ("ring_mm_acc 3 pairs", ("ring_mm",), lambda sig: len(sig) == 3,
+     "curl_tpu/ops/pallas_ring_mm.py:324 (the product against a Beaver-masked operand, "
+     "curl_tpu/mpc/primitives/beaver.py:196)", "curl_tpu_torch/csrc/ring_mm.cu", "ring_mm_acc"),
 )
+# ring_mm_acc's 3-pair launches (a product against a Beaver-masked operand),
+# counted apart
+MASKED = "ring_mm_acc 3 pairs"
 # the kernels read_launches counts, and the kinds recording_launches records
 PATH_FAMILIES = tuple(name for name, *_, part_of in PATH_KERNELS if part_of is None)
 KINDS = ("ring_mm", "philox") + FUSED_KINDS + ("seed_expand", "open")
@@ -2000,9 +2368,12 @@ KINDS = ("ring_mm", "philox") + FUSED_KINDS + ("seed_expand", "open")
 CHAIN_TAGS = {"fused_mul square chain": lambda tag: tag.endswith("+chain"),
               "max_step fold": lambda tag: tag == "fold",
               "max_step butterfly": lambda tag: tag in ("butterfly", "butterfly_unpaired")}
-# this slice's main path, whose launches and milliseconds the JSON line's
-# top-level numbers are
+# the main path of the slices that ported the kernels, whose launches and
+# milliseconds the JSON line's top-level numbers are; an entry that path
+# does not launch (the 3-pair ring_mm_acc) takes GENERATE_PATH's, this
+# slice's main path
 MAIN_PATH = "compressed"
+GENERATE_PATH = "generate"
 
 
 def _other_layout(t):
@@ -2339,6 +2710,11 @@ def run_paths(dev, gen):
     launches, by_op, calls, bench_failures, bench_stats = run_bench_forward(forward)
     failures += bench_failures
     paths["bench"] = (calls, launches, by_op)
+    batch8, batch8_failures = run_batch8(forward)
+    failures += batch8_failures
+    paths["batch8"] = (batch8["calls"], batch8["launches"], batch8["by_op"])
+    del batch8
+    sd = forward["sd"]  # phase 7's weights
     compressed, comp_failures = run_compressed(forward, bench_stats, gen)
     failures += comp_failures
     paths["compressed"] = (compressed["calls"], compressed["launches"], compressed["by_op"])
@@ -2348,6 +2724,11 @@ def run_paths(dev, gen):
     neo, neo_failures = run_neo(dev, gen)
     failures += neo_failures
     paths["neo"] = (neo["calls"], neo["launches"], neo["by_op"])
+    # phase 7 before phase 5, which holds its launch signatures too
+    generated, gen_failures = run_generate(sd)
+    failures += gen_failures
+    paths[GENERATE_PATH] = (generated["calls"], generated["launches"], generated["by_op"])
+    del sd
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
@@ -2365,7 +2746,8 @@ def run_paths(dev, gen):
 
     # phase 6: the compressed GPT-2 and GPT-Neo forwards through
     # compile_parties, captured once and replayed; each model freed after
-    captured = {}
+    captured = {GENERATE_PATH: generated["captured"]}
+    del generated
     for p, res in (("compressed", compressed), ("neo", neo)):
         captured[p], cap_failures = run_captured(p, res)
         failures += cap_failures
@@ -2382,15 +2764,17 @@ def run_paths(dev, gen):
 
     kernels = []
     for name, _, _, replaces, source, part_of in PATH_KERNELS:
-        main = totals[MAIN_PATH].get(name)
+        path = MAIN_PATH if name in totals[MAIN_PATH] else GENERATE_PATH
+        main = totals[path].get(name)
         if main is None:  # the main path's check has failed already
             continue
+        run = "one phase 4c forward" if path == MAIN_PATH else "one phase 7 generation"
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counted(MAIN_PATH, name), max_abs_err=0, ms=main["ms"],
+            launches=counted(path, name), max_abs_err=0, ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, part_of=part_of,
-            shape=f"one phase 4c forward: every launch, {main['signatures']} signatures",
+            shape=f"{run}: every launch, {main['signatures']} signatures",
             paths={p: dict(t[name], launches=counted(p, name))
                    for p, t in totals.items() if name in t},
             captured={p: c["launches"].get(name, c["chains"].get(name))

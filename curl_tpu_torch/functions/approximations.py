@@ -2,13 +2,16 @@
 
 Counterpart of ``curl_tpu/functions/approximations.py`` for this slice:
 exp by the ``limit`` method, reciprocal by the ``haar`` LUT, inv_sqrt by the
-``tailored_haar`` LUTs, gelu by the ``bior`` LUT, and softmax with Newton
-refinement of the denominator (``softmax_recip_refine``). Same round
+``tailored_haar`` LUTs, gelu by the ``bior`` LUT, and softmax (with an
+optional public mask) with Newton refinement of the denominator
+(``softmax_recip_refine``). Same round
 structure and truncation choices as the JAX package; other methods are a
 later slice and raise.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..config import cfg
 from ..mpc.mpc import MPCTensor
@@ -65,7 +68,16 @@ def reciprocal(self):
 
 
 def inv_sqrt(self):
-    """1/sqrt(x) by two haar tables split at x = 1 (approximations.py:232)."""
+    """1/sqrt(x) by two haar tables split at x = 1 (approximations.py:232).
+
+    Table 0 (x < 1) is read where its own truncated index lies inside it,
+    table 1 elsewhere. The reference selects table 0 by x < 1 instead: for
+    x within one cell below 1 the probabilistic truncation can round the
+    index up to the table's size, which the LUT wraps to cell 0 (106.6 for
+    about 1.0), and at batch 8 a GPT-2 forward's LayerNorms meet such a row
+    nearly every run (ROADMAP Queue C). Selecting by the index is the same
+    one comparison on a tensor of the same shape, so rounds and bytes are
+    the reference's; values differ only within one cell of x = 1."""
     method = cfg.functions.inv_sqrt_method
     if method != "tailored_haar":
         raise _not_ported("inv_sqrt", method)
@@ -74,9 +86,12 @@ def inv_sqrt(self):
     luts = LookupTables().LUTs
     truncation_0 = F.inv_sqrt_tailored_0_lut_max_bits + prec - F.inv_sqrt_tailored_0_haar_size_bits
     truncation_1 = F.inv_sqrt_tailored_1_lut_max_bits + prec - F.inv_sqrt_tailored_1_haar_size_bits
-    y_0 = _trunc_lut(self, truncation_0).evaluate_lut(luts["inv_sqrt_tailored_haar_0"])
+    index_0 = _trunc_lut(self, truncation_0)
+    y_0 = index_0.evaluate_lut(luts["inv_sqrt_tailored_haar_0"])
     y_1 = _trunc_lut(self, truncation_1).evaluate_lut(luts["inv_sqrt_tailored_haar_1"])
-    b = self < 1
+    # index_0 keeps x's encoding: it lies inside table 0 iff its decoded
+    # value is below 2^(lut_max_bits - truncation)
+    b = index_0 < 2.0 ** (F.inv_sqrt_tailored_0_lut_max_bits - truncation_0)
     return b * y_0 + (-b + 1) * y_1
 
 
@@ -97,15 +112,32 @@ def gelu(self):
     return relu - lut * check
 
 
-def softmax(self, dim=-1):
+def softmax(self, dim=-1, mask=None):
     """max-shift -> exp(all-neg) -> refined reciprocal of the sum
-    (approximations.py:694-749)."""
+    (approximations.py:694-749).
+
+    ``mask``: an optional public 0/1 tensor broadcastable to self (a causal
+    attention mask). Its handling is local: masked lanes are pinned
+    publicly to -2^(compare_bits - 3 - precision), the most negative value
+    inside the comparison envelope, before the max, and the numerator is
+    zeroed on them, so they get probability 0. A host array is copied to
+    the device once (``ring.host_constant``)."""
     if self.dim() == 0 or self.size(dim) == 1:
         raise NotImplementedError("softmax over a single element is not ported yet")
-    maximum_value = self.max_value(dim, keepdim=True)
+    if mask is not None:
+        from ..mpc.mpc import _compare_bits
+        from ..mpc.primitives.arithmetic import _public_tensor
+
+        mask = _public_tensor(mask, constant=True).to(torch.float64)
+        neg = -float(2 ** (_compare_bits() - 3 - self.encoder.precision_bits))
+        maximum_value = self.mul(mask).add((1.0 - mask) * neg).max_value(dim, keepdim=True)
+    else:
+        maximum_value = self.max_value(dim, keepdim=True)
     logits = self - maximum_value
     with cfg.temp_override({"functions.exp_all_neg": True}):
         numerator = logits.exp()
+    if mask is not None:
+        numerator = numerator.mul(mask)
     denominator = numerator.sum(axis=dim, keepdim=True)
     with cfg.temp_override({"functions.reciprocal_all_pos": True}):
         inv_denominator = denominator.reciprocal()

@@ -1,12 +1,16 @@
-"""max / max_value reductions (counterpart of ``curl_tpu/functions/maximum.py``).
+"""max / min / argmax / argmin reductions (counterpart of
+``curl_tpu/functions/maximum.py``).
 
 Ported methods: ``log_reduction`` (pairwise halvings, then the all-pairs max
-of the remainder), ``pairwise`` (all-pairs comparisons with a weighted
-random tie-break) and ``scan_reduction`` (a cascade of chunk folds and a
-butterfly tail, each step one compare and a one-multiply select). With
-``mpc.fused_max_step`` = "cuda" each stage of ``scan_reduction`` (a chunk
-fold's steps, the butterfly's steps) is one fused pass
-(``kernels/max_step.py``).
+of the remainder), ``pairwise`` (all-pairs comparisons) and
+``scan_reduction`` (a cascade of chunk folds and a butterfly tail, each step
+one compare and a one-multiply select). A tree method's argmax is its max,
+then ``eq`` against it; ties are broken by a weighted random one-hot
+(``weighted_index``) whatever the method. With ``mpc.fused_max_step`` =
+"cuda" each stage of ``scan_reduction`` (a chunk fold's steps, the
+butterfly's steps) is one fused pass (``kernels/max_step.py``), for the
+softmax's max and the argmax alike. ``double_log_reduction`` and
+``accelerated_cascade`` are queue item A10.
 """
 
 from __future__ import annotations
@@ -14,22 +18,55 @@ from __future__ import annotations
 import builtins
 import math
 
+import numpy as np
+
 from ..config import cfg
 from ..mpc.mpc import MPCTensor
 
+_LATER = ("double_log_reduction", "accelerated_cascade")
+
+
+def argmax(self, dim=None, keepdim=False, one_hot=True):
+    """A private one-hot of the max along ``dim`` (of all elements where
+    None), or its index with ``one_hot=False`` (maximum.py:24)."""
+    method = cfg.functions.max_method
+    if self.dim() == 0:
+        return MPCTensor.encrypt(np.ones(()) if one_hot else np.zeros(()), src=0)
+    result = _argmax_helper(self, dim, one_hot, method, _return_max=False)
+    if not one_hot:
+        result = _one_hot_to_index(result, dim, keepdim)
+    return result
+
+
+def argmin(self, dim=None, keepdim=False, one_hot=True):
+    return (-self).argmax(dim=dim, keepdim=keepdim, one_hot=one_hot)
+
 
 def max(self, dim=None, keepdim=False, one_hot=True):
+    """The max along ``dim`` and its argmax (maximum.py:39); over all
+    elements where ``dim`` is None (the max alone)."""
     method = cfg.functions.max_method
     if dim is None:
-        raise NotImplementedError("max over all dims is not ported yet")
-    argmax_result, max_result = _argmax_helper(self, dim=dim, method=method)
+        if method in ("log_reduction", "double_log_reduction", "scan_reduction"):
+            return _max_helper_all_tree_reductions(self, method=method)
+        argmax_result = self.argmax(one_hot=True)
+        return self.mul(argmax_result).sum()
+    argmax_result, max_result = _argmax_helper(self, dim=dim, one_hot=True, method=method,
+                                               _return_max=True)
     if max_result is None:
         max_result = (self * argmax_result).sum(axis=dim, keepdim=keepdim)
     if keepdim and max_result.dim() < self.dim():
         max_result = max_result.unsqueeze(dim)
-    if not one_hot:
-        raise NotImplementedError("argmax indices are not ported yet")
-    return max_result, argmax_result
+    if one_hot:
+        return max_result, argmax_result
+    return max_result, _one_hot_to_index(argmax_result, dim, keepdim)
+
+
+def min(self, dim=None, keepdim=False, one_hot=True):
+    result = (-self).max(dim=dim, keepdim=keepdim, one_hot=one_hot)
+    if dim is None:
+        return -result
+    return -result[0], result[1]
 
 
 def max_value(self, dim=None, keepdim=False):
@@ -37,15 +74,14 @@ def max_value(self, dim=None, keepdim=False):
     method = cfg.functions.max_method
     if self.dim() == 0:
         return self
-    helpers = {"log_reduction": _max_helper_log_reduction,
-               "scan_reduction": _max_helper_scan_reduction}
-    if method not in helpers:
-        raise NotImplementedError(f"max_method {method!r} is not ported yet")
-    inp = self.flatten() if dim is None else self
-    out = helpers[method](inp, dim=0 if dim is None else dim)
-    if dim is not None and keepdim and out.dim() < self.dim():
-        out = out.unsqueeze(dim)
-    return out
+    if method in ("log_reduction", "scan_reduction") + _LATER:
+        out = _max_helper_all_tree_reductions(self, dim=dim, method=method)
+        if dim is not None and keepdim and out.dim() < self.dim():
+            out = out.unsqueeze(dim)
+        return out
+    if dim is None:
+        return self.max()
+    return self.max(dim, keepdim=keepdim)[0]
 
 
 def _argmax_helper_pairwise(enc_tensor, dim):
@@ -165,12 +201,61 @@ def _max_helper_scan_reduction(enc_tensor, dim):
     return x.narrow(x.dim() - 1, 0, 1).squeeze(x.dim() - 1)
 
 
-def _argmax_helper(enc_tensor, dim, method):
-    if method != "pairwise":
-        raise NotImplementedError(f"argmax method {method!r} is not ported yet")
-    result_args = _argmax_helper_pairwise(enc_tensor, dim)
-    return result_args.weighted_index(dim), None
+def _max_helper_all_tree_reductions(enc_tensor, dim=None, method="log_reduction"):
+    """The max along ``dim`` (of the flattened tensor where None) by a tree
+    method (maximum.py:392)."""
+    helpers = {"log_reduction": _max_helper_log_reduction,
+               "scan_reduction": _max_helper_scan_reduction}
+    if method in _LATER:
+        raise NotImplementedError(f"max_method {method!r} is not ported yet (ROADMAP A10)")
+    if method not in helpers:
+        raise RuntimeError("Unknown max method")
+    if enc_tensor.dim() == 0:
+        return enc_tensor
+    if dim is None:
+        enc_tensor, dim = enc_tensor.flatten(), 0
+    return helpers[method](enc_tensor, dim)
 
 
-MPCTensor.max = max
-MPCTensor.max_value = max_value
+def _argmax_helper_all_tree_reductions(enc_tensor, dim=None, method="log_reduction"):
+    """(the lanes equal to the tree's max, the max) (maximum.py:404)."""
+    enc_max_vec = _max_helper_all_tree_reductions(enc_tensor, dim=dim, method=method)
+    enc_max_vec_orig = enc_max_vec.unsqueeze(dim) if dim is not None else enc_max_vec
+    return enc_tensor.eq(enc_max_vec_orig), enc_max_vec
+
+
+def _argmax_helper(enc_tensor, dim=None, one_hot=True, method="pairwise", _return_max=False):
+    """The argmax one-hot along ``dim`` (maximum.py:411), ties broken by a
+    weighted random one-hot; with ``_return_max`` also the max where the
+    method makes it (None for pairwise)."""
+    if enc_tensor.dim() == 0:
+        result = MPCTensor.encrypt(np.ones(()) if one_hot else np.zeros(()), src=0)
+        return (result, None) if _return_max else result
+    updated = enc_tensor.flatten() if dim is None else enc_tensor
+    if method == "pairwise":
+        result_args = _argmax_helper_pairwise(updated, -1 if dim is None else dim)
+        result_val = None
+    elif method in ("log_reduction", "scan_reduction") + _LATER:
+        result_args, result_val = _argmax_helper_all_tree_reductions(updated, dim, method)
+    else:
+        raise RuntimeError("Unknown argmax method")
+    result_args = result_args.weighted_index(dim)
+    result_args = result_args.view(*enc_tensor.size()) if dim is None else result_args
+    return (result_args, result_val) if _return_max else result_args
+
+
+def _one_hot_to_index(tensor, dim, keepdim):
+    """The index a one-hot marks: its lanes weighted by their indices,
+    summed (maximum.py:431)."""
+    if dim is None:
+        flat = tensor.flatten()
+        return flat.mul(np.arange(flat.size(0), dtype=np.float64)).sum()
+    size = [1] * tensor.dim()
+    size[dim] = tensor.size(dim)
+    idx = np.arange(tensor.size(dim), dtype=np.float64).reshape(size)
+    return tensor.mul(idx).sum(axis=dim, keepdim=keepdim)
+
+
+for _name, _fn in (("argmax", argmax), ("argmin", argmin), ("max", max), ("min", min),
+                   ("max_value", max_value)):
+    setattr(MPCTensor, _name, _fn)

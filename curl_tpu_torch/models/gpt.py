@@ -3,13 +3,16 @@
 Pre-LN transformer blocks with the fused Attention module and a GELU FFN,
 the private embedding lookup, a final LayerNorm, the LM head and a softmax
 over the vocabulary. The blocks run as a plain loop where the JAX package
-scans them. ``GPT.build_compressed`` builds the seed-compressed model that
-bench.py runs (GPT-2, and GPT-Neo 1.3B's geometry): vocab-chunked embedding
-and LM head, and at 1024 wide and above chunked block linears.
+scans them. ``causal=True`` masks the attention causally, as a served
+(generating) GPT does. ``GPT.build_compressed`` builds the seed-compressed
+model that bench.py runs (GPT-2, and GPT-Neo 1.3B's geometry): vocab-chunked
+embedding and LM head, and at 1024 wide and above chunked block linears.
 ``models.head_chunk_positions`` runs the embedding and the head over chunks
-of positions; the Beaver-masked weight reuse the JAX package applies then to
-materialized weights (``_premask_linear``, MaskedArithmetic) is not ported,
-so that case raises.
+of positions; a materialized embedding table and LM-head weight are then
+Beaver-masked once a forward (``_premask_linear``) and reused by every
+chunk. ``premask_for_reuse`` masks every weight, for a decode loop
+(``models/generate.py``). ``load_hf_state_dict`` maps a HuggingFace GPT-2
+state dict onto the model.
 """
 
 from __future__ import annotations
@@ -65,11 +68,11 @@ def _install(module, sd, prefix="", keys=None):
 
 class GPT(nn.Module):
     class Block(nn.Module):
-        def __init__(self, embed_dim, num_heads):
+        def __init__(self, embed_dim, num_heads, causal=False):
             super().__init__()
             self.ln1 = nn.LayerNorm(embed_dim)
             self.ln2 = nn.LayerNorm(embed_dim)
-            self.attn = nn.Attention(embed_dim, num_heads)
+            self.attn = nn.Attention(embed_dim, num_heads, causal=causal)
             self.ff = nn.Sequential(
                 nn.Linear(embed_dim, embed_dim * 4),
                 nn.GELU(),
@@ -80,7 +83,8 @@ class GPT(nn.Module):
             x = x + self.attn(self.ln1(x))
             return x + self.ff(self.ln2(x))
 
-    def __init__(self, embed_dim, num_heads, num_blocks, vocab_size, seq_len, full=True):
+    def __init__(self, embed_dim, num_heads, num_blocks, vocab_size, seq_len, full=True,
+                 causal=False):
         super().__init__()
         self.full = full
         self.embed_dim = embed_dim
@@ -90,7 +94,8 @@ class GPT(nn.Module):
         if full:
             self.tok_embed = nn.Embedding(vocab_size, embed_dim)
             self.register_param("pos_embed", torch.zeros((1, seq_len, embed_dim), dtype=torch.float64))
-        self.blocks = nn.Sequential(*[GPT.Block(embed_dim, num_heads) for _ in range(num_blocks)])
+        self.blocks = nn.Sequential(*[GPT.Block(embed_dim, num_heads, causal=causal)
+                                      for _ in range(num_blocks)])
         if full:
             self.ln = nn.LayerNorm(embed_dim)
             self.fc = nn.Linear(embed_dim, vocab_size)
@@ -106,24 +111,43 @@ class GPT(nn.Module):
             return 0
 
     @staticmethod
-    def _refuse_premask(module):
-        """The JAX package Beaver-masks a materialized weight once before a
-        chunk loop reuses it (gpt.py:219-240); that is not ported."""
+    def _premask_linear(module):
+        """Replace a module's materialized encrypted weight with its
+        Beaver-masked form (gpt.py:218-240); a no-op on a plaintext,
+        compressed or already masked weight, and where ``mask_operand``
+        declines."""
         w = module._params.get("weight")
-        if isinstance(w, MPCTensor) and type(w._tensor) is ArithmeticSharedTensor:
-            raise NotImplementedError(
-                "models.head_chunk_positions on materialized weights needs the "
-                "Beaver-masked weight reuse (MaskedArithmetic), which is not ported yet; "
-                "use GPT.build_compressed or head_chunk_positions 0"
-            )
+        if not isinstance(w, MPCTensor) or type(w._tensor) is not ArithmeticSharedTensor:
+            return
+        masked = beaver.mask_operand(w._tensor)
+        if masked is not w._tensor:
+            module._params["weight"] = MPCTensor(masked)
+
+    def premask_for_reuse(self):
+        """Beaver-mask every weight a decode loop reuses (gpt.py:242-253):
+        the embedding table, the LM head and each block's linears. Each
+        product then draws only input-sized randomness. A mask is drawn
+        where this is called: call it inside the function a runner
+        captures, after binding the plain shares, so that every call draws
+        its own."""
+        if self.full:
+            self._premask_linear(self.tok_embed)
+            self._premask_linear(self.fc)
+        for blk in self.blocks:
+            for lin in (blk.attn.search, blk.attn.proj, blk.ff._modules["0"],
+                        blk.ff._modules["2"]):
+                self._premask_linear(lin)
+        return self
 
     def embed(self, x):
-        """Token ids (encrypted, precision 0, shape (b, t)) -> hidden state."""
+        """Token ids (encrypted, precision 0, shape (b, t)) -> hidden state.
+        Where the ids split into chunks of positions, the table is masked
+        once and every chunk reuses it."""
         if x.dim() == 2:
             b, t = x.shape
             chunk = self._head_chunk()
             if nn.module.splits(b * t, chunk):
-                self._refuse_premask(self.tok_embed)
+                self._premask_linear(self.tok_embed)
             tok = nn.module.scan_chunked(self.tok_embed, x.reshape(b * t), chunk)
             tok = tok.reshape(b, t, self.embed_dim)
         else:
@@ -139,7 +163,8 @@ class GPT(nn.Module):
             b, t, d = x.shape
             chunk = self._head_chunk()
             if nn.module.splits(b * t, chunk):
-                self._refuse_premask(self.fc)
+                # every chunk of positions reuses the head's weight
+                self._premask_linear(self.fc)
 
             def head(rows):
                 return self.softmax(self.fc(self.ln(rows)))
@@ -150,7 +175,8 @@ class GPT(nn.Module):
 
     @classmethod
     def build_compressed(cls, embed_dim, num_heads, num_blocks, vocab_size, seq_len,
-                         head_vocab_chunks=8, chunk_block_linears=None, state_dict=None):
+                         causal=False, head_vocab_chunks=8, chunk_block_linears=None,
+                         state_dict=None):
         """An encrypted GPT whose parameters are seed-compressed and never
         all materialize (gpt.py:257-363).
 
@@ -174,7 +200,7 @@ class GPT(nn.Module):
         no_init = nn.module.skip_init if sd is not None else contextlib.nullcontext
         if sd is not None:
             with no_init():
-                block_keys = list(GPT.Block(d, num_heads).state_dict())
+                block_keys = list(GPT.Block(d, num_heads, causal=causal).state_dict())
             want = {"tok_embed.weight", "pos_embed", "ln.weight", "ln.bias", "fc.weight",
                     "fc.bias"}
             want |= {f"blocks.{i}.{k}" for i in range(num_blocks) for k in block_keys}
@@ -183,13 +209,13 @@ class GPT(nn.Module):
                 raise KeyError(f"state dict mismatch: missing {missing[:5]}, "
                                f"unexpected {extra[:5]}")
 
-        model = GPT(d, num_heads, 0, vocab_size, seq_len, full=False)
+        model = GPT(d, num_heads, 0, vocab_size, seq_len, full=False, causal=causal)
         model.full = True
         model.num_blocks = num_blocks
 
         for i in range(num_blocks):
             with no_init():
-                blk = GPT.Block(d, num_heads)
+                blk = GPT.Block(d, num_heads, causal=causal)
             if sd is not None:
                 _install(blk, sd, f"blocks.{i}.")
             if chunk_block_linears:
@@ -232,8 +258,8 @@ def _chunk_block_linears(blk):
 class GPT2(GPT):
     GEOM = dict(embed_dim=768, num_heads=12, num_blocks=12, vocab_size=50257)
 
-    def __init__(self, seq_len, full=True):
-        super().__init__(seq_len=seq_len, full=full, **GPT2.GEOM)
+    def __init__(self, seq_len, full=True, causal=False):
+        super().__init__(seq_len=seq_len, full=full, causal=causal, **GPT2.GEOM)
 
 
 class GPTNeo(GPT):
@@ -241,8 +267,8 @@ class GPTNeo(GPT):
 
     GEOM = dict(embed_dim=2048, num_heads=16, num_blocks=24, vocab_size=50257)
 
-    def __init__(self, seq_len, full=True):
-        super().__init__(seq_len=seq_len, full=full, **GPTNeo.GEOM)
+    def __init__(self, seq_len, full=True, causal=False):
+        super().__init__(seq_len=seq_len, full=full, causal=causal, **GPTNeo.GEOM)
 
 
 def load_numpy_state_dict(model: nn.Module, sd) -> nn.Module:
@@ -257,4 +283,39 @@ def load_numpy_state_dict(model: nn.Module, sd) -> nn.Module:
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing {missing[:5]}, unexpected {extra[:5]}")
     _install(model, sd)
+    return model
+
+
+def load_hf_state_dict(model: GPT, sd) -> GPT:
+    """Map a HuggingFace ``GPT2LMHeadModel`` (or bare ``GPT2Model``) state
+    dict, a mapping of tensors or arrays, onto a full plaintext ``model``
+    (gpt.py:366-408). HF's Conv1D layers store their weights (in, out)
+    where a Linear stores (out, in), so c_attn, c_proj and c_fc are
+    transposed; the LM head is tied to ``wte`` (``lm_head.weight`` where
+    given) with a zero bias."""
+    if not model.full:
+        raise ValueError("load_hf_state_dict needs the full model (full=True)")
+
+    def g(key):
+        t = sd[key]
+        arr = t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+        return torch.from_numpy(np.array(arr, dtype=np.float64))
+
+    pfx = "transformer." if any(k.startswith("transformer.") for k in sd) else ""
+    model.tok_embed._params["weight"] = g(pfx + "wte.weight")
+    model._params["pos_embed"] = g(pfx + "wpe.weight")[None, : model.seq_len].clone()
+    for i, blk in enumerate(model.blocks):
+        p = f"{pfx}h.{i}."
+        for ln, name in ((blk.ln1, "ln_1"), (blk.ln2, "ln_2")):
+            ln._params["weight"] = g(p + name + ".weight")
+            ln._params["bias"] = g(p + name + ".bias")
+        for lin, name in ((blk.attn.search, "attn.c_attn"), (blk.attn.proj, "attn.c_proj"),
+                          (blk.ff._modules["0"], "mlp.c_fc"), (blk.ff._modules["2"], "mlp.c_proj")):
+            lin._params["weight"] = g(p + name + ".weight").T.contiguous()
+            lin._params["bias"] = g(p + name + ".bias")
+    model.ln._params["weight"] = g(pfx + "ln_f.weight")
+    model.ln._params["bias"] = g(pfx + "ln_f.bias")
+    head_key = "lm_head.weight" if "lm_head.weight" in sd else pfx + "wte.weight"
+    model.fc._params["weight"] = g(head_key)
+    model.fc._params["bias"] = torch.zeros(model.vocab_size, dtype=torch.float64)
     return model

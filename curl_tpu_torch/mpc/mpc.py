@@ -2,7 +2,8 @@
 
 Counterpart of ``curl_tpu/mpc/mpc.py``. Wraps an ArithmeticSharedTensor or
 BinarySharedTensor whose share carries the explicit party axis, converts
-between them (A2B/B2A) and hosts the sign primitive ``_ltz``. The function
+between them (A2B/B2A) and hosts the sign primitive ``_ltz`` and the
+equality ``eq`` / ``ne`` (the 2-party ``_eqz_2PC``). The function
 library (``curl_tpu_torch.functions``) installs its ops on this class at
 import, as the JAX package does. It is also the port's user-facing
 encrypted tensor (``curl_tpu_torch.CrypTensor``): the shares of all parties
@@ -15,6 +16,7 @@ import math
 
 import torch
 
+from .. import comm
 from ..encoder import FixedPointEncoder
 from .primitives import converters
 from .primitives.arithmetic import ArithmeticSharedTensor
@@ -174,6 +176,49 @@ class MPCTensor:
             b = BinarySharedTensor(sign, self.encoder)
         arith = converters.B2A(b, precision=precision, bits=1)
         return MPCTensor(ArithmeticSharedTensor(arith.share, FixedPointEncoder(0)))
+
+    def eq(self, y):
+        """self == y (mpc.py:268): the 2-party equality circuit, or
+        1 - ne for more parties."""
+        if comm.get_world_size() == 2:
+            return (self - y)._eqz_2PC()
+        return -(self.ne(y)) + 1
+
+    def ne(self, y):
+        """self != y (mpc.py:273): 1 - eq for 2 parties; for more, the sum
+        of ltz over the stacked difference and its negation."""
+        if comm.get_world_size() == 2:
+            return -(self.eq(y)) + 1
+        difference = self - y
+        stacked = ArithmeticSharedTensor(
+            torch.stack([difference.share, -difference.share], dim=1), difference.encoder)
+        ltz = MPCTensor(stacked)._ltz()
+        return MPCTensor(ArithmeticSharedTensor(ltz.share.sum(dim=1), ltz.encoder))
+
+    def _eqz_2PC(self):
+        """self == 0 for 2 parties (mpc.py:286-310): party 0 XOR-shares its
+        share, party 1 the negation of its own, and the AND tree checks the
+        two words equal. Under cfg.mpc.compare_bits = w < 64 the words are
+        packed 64 / w elements a word first: value == 0 iff value == 0 mod
+        2^w, given |value| < 2^(w-1) ring units (the envelope of _ltz)."""
+        from .primitives import circuit
+
+        width = _compare_bits()
+        share = self.share
+        if width >= 64:
+            x0 = BinarySharedTensor.encrypt(share, src=0, per_party=True)
+            x1 = BinarySharedTensor.encrypt(-share, src=1, per_party=True)
+            eq_bits = circuit.eq(x0, x1)
+        else:
+            packed_pos, meta = _pack_narrow(share, width)
+            packed_neg, _ = _pack_narrow(-share, width)
+            x0 = BinarySharedTensor.encrypt(packed_pos, src=0, per_party=True)
+            x1 = BinarySharedTensor.encrypt(packed_neg, src=1, per_party=True)
+            word = circuit._p_circuit(~(x0 ^ x1), width)
+            eq_bits = BinarySharedTensor(_unpack_lanes(word.share, width, meta, lane_bit=width - 1))
+        eq_bits.encoder = self.encoder
+        result = converters.B2A(eq_bits, precision=0, bits=1)
+        return MPCTensor(ArithmeticSharedTensor(result.share, FixedPointEncoder(0)))
 
     # -- arithmetic passthroughs -------------------------------------------
     def _wrap(self, result):

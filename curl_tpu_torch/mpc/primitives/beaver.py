@@ -17,10 +17,15 @@ the same rounds and bytes as there:
 Revealed values (epsilon, delta, the LUT shift) are public tensors without
 the party axis; dealer plaintexts (a, b, c = a @ b) are too, and are
 computed once. The LUTs and the embedding take the JAX package's TFP
-gather forms (its ``lut_fastpath``/``fused_onehot`` defaults). Not ported in
-this slice: the reference's tuple one-hot forms (and with them the private
-embedding of more than two parties), the Beaver-masked operand reuse
-(MaskedArithmetic), active security.
+gather forms (its ``lut_fastpath``/``fused_onehot`` defaults).
+
+A secret operand that many products reuse (a decode loop's weights, the LM
+head over chunks of positions) can be Beaver-masked once
+(``mask_operand``, ``MaskedArithmetic``): b drawn and delta = y - b revealed
+once, each later product then draws only its input-sized a and reveals only
+eps = x - a. Not ported: the reference's tuple one-hot forms (and with them
+the private embedding of more than two parties), active security, and the
+ring convolutions (queue item A10).
 """
 
 from __future__ import annotations
@@ -45,9 +50,11 @@ def _provider():
 
 def _raw(x: ArithmeticSharedTensor) -> ArithmeticSharedTensor:
     """Scale-1 view (the IgnoreEncodings context of the reference); a
-    seed-compressed tensor stays compressed."""
+    seed-compressed tensor stays compressed and a masked one masked."""
     if isinstance(x, SeedCompressedArithmetic):
         return x.with_encoder(FixedPointEncoder(0))
+    if isinstance(x, MaskedArithmetic):
+        return MaskedArithmetic(x.b_plain, x.b_share, x.delta, FixedPointEncoder(0))
     return ArithmeticSharedTensor(x.share, FixedPointEncoder(0))
 
 
@@ -95,12 +102,126 @@ _RING_OPS = {
 }
 
 
+class MaskedArithmetic(ArithmeticSharedTensor):
+    """A secret operand y pre-masked for Beaver-triple reuse
+    (beaver.py:106-173).
+
+    ``b_plain`` is the dealer's draw b (no party axis: only party 0's copy
+    enters a share sum, as with every TFP plaintext), ``b_share`` its
+    (P, ...) sharing and ``delta = y - b`` the public value revealed once.
+    Masking once is simulatable like one Beaver product (delta is padded by
+    b), and each later product reveals only a fresh eps = x - a. ``share``
+    is an ordinary sharing of y, b_share plus delta on party 0, so every op
+    but a product reads the operand as before; ``t``, ``transpose`` and the
+    scale-1 view (``_raw``) keep it masked."""
+
+    # ``share`` is a property here: the parent's slot of that name stays unset
+    __slots__ = ("b_plain", "b_share", "delta")
+
+    def __init__(self, b_plain, b_share, delta, encoder):
+        self.b_plain = b_plain
+        self.b_share = b_share
+        self.delta = delta
+        self.encoder = encoder
+
+    @property
+    def share(self):
+        return self.b_share + rank0(self.delta, ndim=self.delta.dim())
+
+    @property
+    def shape(self):
+        return tuple(self.b_plain.shape)
+
+    @property
+    def ndim(self):
+        return self.b_plain.dim()
+
+    def t(self):
+        return self if self.ndim < 2 else self.transpose(-2, -1)
+
+    def transpose(self, d0, d1):
+        sd0, sd1 = (d + 1 if d >= 0 else d for d in (d0, d1))
+        return MaskedArithmetic(self.b_plain.transpose(d0, d1), self.b_share.transpose(sd0, sd1),
+                                self.delta.transpose(d0, d1), self.encoder)
+
+    def with_share(self, share) -> ArithmeticSharedTensor:
+        return ArithmeticSharedTensor(share, self.encoder)
+
+
+def mask_operand(y: ArithmeticSharedTensor):
+    """``y`` Beaver-masked for reuse (beaver.py:176-193): b drawn by the
+    dealer and shared in one launch, then delta = y - b revealed (one
+    round of y's size). Declined, ``y`` returned as it is, where the JAX
+    package declines: a dealer other than TFP, or active security. (It
+    also declines under its tuple cache, which the port does not have.)"""
+    if getattr(_provider(), "NAME", None) != "TFP" or cfg.mpc.active_security:
+        return y
+    shape = y.shape
+    draw_b, share_b = rng.reserve_counts(2)
+    ((out, b),) = rng.launch([rng.segment_fresh(shape, 64, draw_b, share_b, emit=True)])
+    b_share = rng.shares(out, shape)
+    delta = comm.all_sum(y.share - b_share)
+    return MaskedArithmetic(b.reshape(shape), b_share, delta, y.encoder)
+
+
+def _masked_protocol(op, x, y: MaskedArithmetic):
+    """One product against a pre-masked y (beaver.py:196-221): the dealer
+    draws only an input-sized a. Draws in the JAX package's order: a, its
+    sharing, then the output's sharing (a zero sharing for a matmul, the
+    sharing of c = op(a, b) otherwise)."""
+    if op == "matmul" and (x.ndim < 2 or y.ndim < 2):
+        raise NotImplementedError("private matmul of a 1-D operand is not ported yet")
+    draw_a, share_a, share_c = rng.reserve_counts(3)
+    if op == "matmul":
+        batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
+        out_shape = tuple(batch) + (x.shape[-2], y.shape[-1])
+        (a_out, a), c_out = rng.launch([
+            rng.segment_fresh(x.shape, 64, draw_a, share_a, emit=True),
+            rng.segment_zero(out_shape, share_c)])
+        a = a.reshape(x.shape)
+        epsilon = comm.all_sum(x.share - rng.shares(a_out, x.shape))
+        nd = max(x.ndim, y.ndim)
+        # the dealer product a @ b (party 0's: rank0(a) @ b = rank0(a @ b)),
+        # eps @ b and x @ delta in one ring-mm launch of three pairs, at any
+        # K: the JAX package sums three products where 3 K >= 2^17
+        # (ring.py:319); the two sums are equal mod 2^64
+        z = rng.shares(c_out, out_shape) + ring.matmul_acc([
+            (rank0(a, ndim=nd), y.b_plain), (epsilon, lift(y.b_share, nd)),
+            (lift(x.share, nd), y.delta)])
+        return ArithmeticSharedTensor(z, x.encoder)
+    ((a_out, a),) = rng.launch([rng.segment_fresh(x.shape, 64, draw_a, share_a, emit=True)])
+    c = _RING_OPS[op](a.reshape(x.shape), y.b_plain)
+    (c_out,) = rng.launch([rng.segment_share(c, share_c)])
+    epsilon = comm.all_sum(x.share - rng.shares(a_out, x.shape))
+    nd = c.dim()
+    z = rng.shares(c_out, c.shape) + epsilon * lift(y.b_share, nd) + lift(x.share, nd) * y.delta
+    return ArithmeticSharedTensor(z, x.encoder)
+
+
 def mul(x, y):
+    if isinstance(y, MaskedArithmetic):
+        return _masked_protocol("mul", x, y)
     return _beaver_protocol("mul", x, y)
 
 
 def matmul(x, y):
+    if isinstance(y, MaskedArithmetic):
+        return _masked_protocol("matmul", x, y)
     return _beaver_protocol("matmul", x, y)
+
+
+def _no_conv(op):
+    def conv(x, y, **kwargs):
+        raise NotImplementedError(f"the ring convolution {op} is not ported yet (ROADMAP A10)")
+
+    conv.__name__ = op
+    return conv
+
+
+conv1d = _no_conv("conv1d")
+conv2d = _no_conv("conv2d")
+conv_transpose1d = _no_conv("conv_transpose1d")
+conv_transpose2d = _no_conv("conv_transpose2d")
 
 
 def square(x):
@@ -213,7 +334,8 @@ def evaluate_bior_lut(x, luts, scale, bias: int):
 
 def evaluate_embed(x, embed):
     """Private embedding lookup: the secret one-hot of x times the secret
-    table, one Beaver matmul (beaver.py:590)."""
+    table, one Beaver matmul (beaver.py:590); against a Beaver-masked table
+    (``MaskedArithmetic``) the product reuses its mask."""
     if comm.get_world_size() != 2:
         raise NotImplementedError("the private embedding of more than two parties is not ported yet")
     size, dim = embed.shape

@@ -105,6 +105,9 @@ class BinarySharedTensor:
             return self.with_share(self.share & yv)
         return self.with_share(lift(self.share, max(self.ndim, yv.dim())) & yv)
 
+    def __invert__(self):
+        return self ^ -1
+
     def __lshift__(self, bits):
         return self.with_share(self.share << bits)
 

@@ -1,7 +1,7 @@
 """Constant-round Set-Propagate-Kill adder circuits on 64-bit words.
 
-Counterpart of ``curl_tpu/mpc/primitives/circuit.py`` (the parts the slice
-runs: the SPK prefix and the adder). At each of log2(width) levels one
+Counterpart of ``curl_tpu/mpc/primitives/circuit.py`` (the parts the port
+runs: the SPK prefix, the adder and the equality AND tree). At each of log2(width) levels one
 Beaver AND updates the S and P lanes together (they are stacked so both
 ANDs share one reveal); fanning values along the prefix arrows is a plain
 multiply in the ring of bits. The masks are the JAX package's, folded into
@@ -77,3 +77,21 @@ def add(x, y, width=_BITS):
     if width != _BITS:
         shifted = shifted.with_share(shifted.share & _boundary_clear(width))
     return P ^ shifted
+
+
+def _p_circuit(P, width=_BITS):
+    """AND tree over bit lanes (circuit.py:90-99): lane k * width - 1 ends
+    up set iff all ``width`` bits of segment k are 1. With width < 64 the
+    shift windows stay inside each segment, so a packed word evaluates
+    64 / width equalities at once."""
+    shift = width // 2
+    for _ in range(_log2(width)):
+        P = P & (P << shift)
+        shift //= 2
+    return P
+
+
+def eq(x, y):
+    """Bitwise equality of XOR-shared words: the sign lane of the AND tree
+    over ~(x ^ y) (circuit.py:128)."""
+    return _p_circuit(~(x ^ y)).logical_rshift(63)

@@ -259,15 +259,32 @@ class Embedding(Module):
         return x.evaluate_embed(self._params["weight"])
 
 
-class Attention(Module):
-    """Fused multi-head attention block (non-causal, as the reference's)."""
+# the causal masks by (seq_len, device): one device copy each
+_causal_masks = {}
 
-    def __init__(self, embed_dim, num_heads):
+
+def causal_mask(seq_len: int, device) -> torch.Tensor:
+    """The public lower-triangular (seq_len, seq_len) float64 mask on
+    ``device``, made once and kept, so that a forward captured in a CUDA
+    graph copies nothing from the host."""
+    key = (int(seq_len), str(torch.device(device)))
+    if key not in _causal_masks:
+        _causal_masks[key] = torch.tril(torch.ones(key[0], key[0], dtype=torch.float64)).to(device)
+    return _causal_masks[key]
+
+
+class Attention(Module):
+    """Fused multi-head attention block (module.py:1002-1037).
+    ``causal=True`` applies the public lower-triangular mask inside the
+    softmax: a position attends to itself and the positions before it."""
+
+    def __init__(self, embed_dim, num_heads, causal=False):
         super().__init__()
         assert embed_dim % num_heads == 0, "invalid heads and embedding dimension"
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.search_dim = embed_dim // num_heads
+        self.causal = causal
         self.search = Linear(embed_dim, 3 * embed_dim)
         self.proj = Linear(embed_dim, embed_dim)
 
@@ -278,7 +295,9 @@ class Attention(Module):
         query = query.reshape(b, t, h, d).transpose(1, 2)
         key = key.reshape(b, t, h, d).permute(0, 2, 3, 1)
         value = value.reshape(b, t, h, d).transpose(1, 2)
-        attn = (query.matmul(key) / math.sqrt(d)).softmax(-1)
+        attn = query.matmul(key) / math.sqrt(d)
+        mask = causal_mask(t, x.share.device) if self.causal else None
+        attn = attn.softmax(-1, mask=mask)
         y = attn.matmul(value).transpose(1, 2).reshape(b, t, self.embed_dim)
         return self.proj(y)
 

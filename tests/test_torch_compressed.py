@@ -191,14 +191,22 @@ def test_scan_chunked_with_head_chunk_positions_equals_the_direct_call(port_run)
 
 
 def test_head_chunk_positions_on_materialized_weights_raises():
-    """The JAX package Beaver-masks a materialized weight that a chunk loop
-    reuses (MaskedArithmetic, not ported)."""
+    """Materialized weights under head_chunk_positions raised until the
+    Beaver-masked reuse was ported (PR 9): the chunk loop now masks the
+    embedding table and the head's weight once (MaskedArithmetic) and
+    decodes as the unchunked forward does."""
+    from curl_tpu_torch.mpc.primitives.beaver import MaskedArithmetic
+
     ct.init(world_size=2, seed=0, device="cpu")
     model = load_numpy_state_dict(GPT(**GEOM), _random_state(GEOM)).encrypt()
+    apply_fn, params = model.functional()
     x = ct.cryptensor(TOKENS.astype(np.float64), precision=0)
+    direct = apply_fn(params, x).get_plain_text()
     with cfg.temp_override(HEAD_CHUNK):
-        with pytest.raises(NotImplementedError, match="MaskedArithmetic"):
-            model(x)
+        chunked = apply_fn(params, x).get_plain_text()
+    assert type(model.tok_embed.weight._tensor) is MaskedArithmetic
+    assert type(model.fc.weight._tensor) is MaskedArithmetic
+    np.testing.assert_allclose(chunked, direct, atol=0.05)
 
 
 # ---------------------------------------------------------------------------

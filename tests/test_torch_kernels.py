@@ -60,6 +60,21 @@ def test_ring_mm_kernel_matches_plain_on_card():
         assert torch.equal(ring_mm.ring_mm(pairs), ring_mm.plain(pairs))
 
 
+@pytest.mark.cuda
+def test_ring_mm_three_pairs_match_plain_on_card():
+    """A Beaver-masked product's launch: three pairs (party 0's dealer
+    product, eps @ b_share, x @ delta), at the generator's embedding K =
+    50257 with a transposed delta, and at odd K."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(1)
+    r = lambda *s: torch.randint(-(2 ** 62), 2 ** 62, s, generator=g).cuda()  # noqa: E731
+    for m, k, n in ((64, 50257, 768), (3, 8193, 5), (65, 131, 67), (2, 50257, 3)):
+        a_eff = torch.stack([r(1, m, k)[0], torch.zeros(m, k, dtype=torch.int64, device="cuda")])
+        pairs = [(a_eff, r(k, n)), (r(m, k), r(2, k, n)), (r(2, m, k), r(n, k).t())]
+        assert torch.equal(ring_mm.ring_mm(pairs), ring_mm.plain(pairs)), (m, k, n)
+
+
 def test_philox_refuses_bad_arguments():
     with pytest.raises(ValueError):
         philox.plain_philox("share", [1, 2], 0, 4, plain=torch.zeros(3, dtype=torch.int64))

