@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of curl_tpu_torch on one CUDA card: kernels, then the private
-2-party GPT-2 forward under the shipped configuration, under bench.py's
-kernel configuration, at batch 8 with Beaver-masked weight reuse, and with
-seed-compressed weights as bench.py builds them; then GPT-Neo 1.3B's
-geometry, seed-compressed; then private greedy generation with a causal
-GPT-2, eagerly and captured whole as one CUDA graph; then both compressed
-forwards captured as CUDA graphs by ``compile_parties``.
+"""Smoke run of curl_tpu_torch on one CUDA card: kernels; the function
+library; the private 2-party GPT-2 forward under the shipped configuration,
+under bench.py's kernel configuration, at batch 8 with Beaver-masked weight
+reuse, and with seed-compressed weights as bench.py builds them; then
+GPT-Neo 1.3B's and 2.7B's geometries, seed-compressed; private greedy
+generation with a causal GPT-2, eagerly and captured whole as one CUDA
+graph; BertLarge at full width; the repo's bert-tiny-qnli checkpoint
+classifying 8 rows privately; then the three compressed forwards captured
+as CUDA graphs by ``compile_parties``.
 
     python3 chip_smoke.py
 
@@ -37,6 +39,17 @@ without the final line):
               reconstructs e exactly; the open of a compressed Beaver operand
               against plain_open at the paths' weight shapes, transposed and
               not, and odd ones; time, plain time and bound
+  3d. functions  every (function, method) of curl_tpu's function library
+              (FUNCTION_CASES: exp, log, reciprocal, inv_sqrt, sqrt, cos/sin,
+              sigmoid, tanh, erf, gelu, silu, relu, log_softmax, softmax of
+              one element, the crypten LUT truncation) on a (64, 3072) grid
+              over its domain, by the fused route (bench.py's kernel
+              configuration) and the composable route: max and mean |error|
+              against float64 within the limits taken from curl_tpu's own
+              readings on the same input (or the reference's fault
+              reproduced), rounds equal on both routes and to the CPU count,
+              bytes equal on both routes, launches by kernel. It runs first
+              of run_paths, and phase 5 holds its launch signatures
   4. forward  GPT-2 (768 wide, 12 heads, 12 blocks, vocab 50257) under
               configs/default.yaml, random weights from a numpy seed,
               encrypted by party 0; a private forward on 64 token ids
@@ -77,6 +90,10 @@ without the final line):
               linears, weights made block by block from a numpy seed: the
               same readings and open checks, against its own pre-declared
               bound
+  4f. neo_large  GPT-Neo 2.7B's geometry (2560 wide, 20 heads, 32 blocks,
+              vocab 50257), as 4d: the same readings and checks against its
+              own pre-declared bound, resident shares at most 0.6 of the
+              materialized model's, rounds equal to the CPU count
   7. generate private greedy generation with a causal GPT-2 (phase 4's
               weights, materialized), a 60-token prompt as an encrypted
               one-hot buffer (1, 64, 50257), 4 tokens: every weight
@@ -95,8 +112,20 @@ without the final line):
               block left out) that fails it; rounds, bytes and latency a
               token, capture time and graph memory. It runs after phase
               4d, so that phase 5 holds its launch signatures
+  8. bert     BertLarge (1024 wide, 16 heads, 24 post-LN blocks, vocab
+              30522) as bench.py builds it for BENCH_MODEL=BertLarge:
+              materialized, under its kernel configuration; latency,
+              rounds (the CPU count), bytes, launches, peak memory; the last
+              block's output against float64 under its pre-declared bound,
+              one block left out above it
+  9. qnli     benchmarks/checkpoints/bert-tiny-qnli read by the port's own
+              safetensors reader, 8 rows of [CLS] a [SEP] b [SEP] [PAD]...
+              classified privately under bench.py's kernel configuration:
+              the logits' relative L2 error against the float64 classifier
+              under its pre-declared bound, the argmax agreement, block 1
+              left out above the bound; latency, rounds, bytes
   5. path     every launch signature (shapes, strides, op) that any of the
-              forwards of phases 4, 4b, 4e, 4c, 4d and 7 passed to ring_mm, philox,
+              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8 and 9 passed to ring_mm, philox,
               fused_mul, ltz, max_step and seed_expand (expand and open), on
               fresh operands of the same layout: bit for bit against plain,
               timed with the L2 cache flushed before each call, and summed
@@ -108,7 +137,7 @@ without the final line):
               ring_mm_acc as multiples of their bounds, and any ring_mm
               signature above 10x its bound; each open signature's
               multiple of its bound
-  6. captured phase 4c's and 4d's models and tokens through
+  6. captured phase 4c's, 4d's and 4f's models and tokens through
               ``compile_parties(model.functional())``: the forward
               captured once as a CUDA graph (launch counts and CommStats
               reset just before the capture and read just after), replayed
@@ -134,6 +163,7 @@ last line.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -231,6 +261,20 @@ HEAD_CHUNKS = 8
 # the sound reading is expected near 0.16-0.17 and the planted fault near
 # 0.23-0.25; the bound sits between them.
 NEO_SCALE_FREE_L2 = 0.20
+# Phase 4f's bound on GPT-Neo 2.7B's geometry (2560 wide, 20 heads, 32
+# blocks), fixed the same way before the first run of the phase (PERF.md
+# §6; scripts/torch_neo_large_bound.py): on the CPU at widths 80 and 240
+# the sound private forward reads 0.148 and 0.178, the private forward
+# without the least-felt block 0.215 and 0.236 (the plaintext without it
+# 0.152 and 0.155); the sound reading grows with width. Read later: width
+# 480, 0.180 and 0.242; width 240 at two other session seeds, 0.180 and
+# 0.178, their faults 0.232 and 0.237. The bound splits every width but
+# 80, with margins ten times the seeds' spread. And its rounds:
+# the CPU count at width 240, whose head dimension (12) scales the scores
+# by a truncated product as 2560's (128) does; width 80's (4) divides
+# locally and counts one round a block fewer.
+NEO_LARGE_SCALE_FREE_L2 = 0.22
+NEO_LARGE_ROUNDS = 5517
 # Phase 4e: batch 8 with the embedding and the head over chunks of 64
 # positions (the Beaver-masked reuse), bench.py's batch
 BATCH8 = 8
@@ -246,6 +290,261 @@ BATCH8 = 8
 PROMPT_LEN = 60
 GEN_TOKENS = 4
 GENERATE_LOGITS_SCALE_FREE_L2 = 0.19
+
+# Phase 3d: every function and method of the library (tests/test_torch_functions.py
+# holds each against curl_tpu on the CPU) at the GELU's size in GPT-2, on a
+# grid over the function's domain repeated to fill the shape. Each case:
+# (function, config override, domain): (lo, hi), "signed" (+-[2, 32],
+# alternating) or "normal" (a standard normal times 2, numpy seed 0); a
+# case whose id ends in "-one" takes a trailing axis of one element.
+FUNCTION_SHAPE = (64, 3072)
+_DOMAINS = {"sigmoid": (-6, 6), "tanh": (-3, 3), "erf": (-2, 2), "silu": (-6, 6),
+            "gelu": (-3, 3), "log": (2, 60), "reciprocal": (2, 32), "inv_sqrt": (2, 200),
+            "sqrt": (4, 200), "cossin": (-6, 6), "relu": (-3, 3), "log_softmax": "normal"}
+_CRYPTEN = {"encoder.trunc_method.lut": "crypten"}
+# tests/test_reference_parity.py's TOLS for the default-config functions
+FUNCTION_TOLS = {"sigmoid": 0.08, "tanh": 0.15, "erf": 0.02, "silu": 0.04, "relu": 0.01,
+                 "sqrt": 0.3, "log": 0.05}
+
+
+def _function_cases():
+    cases = {name: (name, {}, _DOMAINS[name]) for name in FUNCTION_TOLS}
+
+    def add(key, fn, over, dom=None):
+        cases[key] = (fn, over, _DOMAINS[fn] if dom is None else dom)
+
+    for m in ("bior", "haar-lut-only", "bior-lut-only", "reciprocal", "chebyshev"):
+        for f in ("sigmoid", "tanh"):
+            add(f"{f}-{m}", f, {"functions.sigmoid_tanh_method": m})
+    for f, key in (("erf", "erf_method"), ("silu", "silu_method"), ("gelu", "gelu_method")):
+        for m in ("haar", "haar-lut-only", "bior-lut-only", {"erf": "Taylor", "silu": "sigmoid",
+                                                             "gelu": "erf"}[f]):
+            add(f"{f}-{m}", f, {f"functions.{key}": m})
+    for m in ("split", "haar", "bior"):
+        add(f"exp-{m}", "exp", {"functions.exp_method": m}, (-12, 0))
+        if m != "split":
+            add(f"exp-{m}-signed", "exp", {"functions.exp_method": m,
+                                           "functions.exp_all_neg": False}, (-4, 3))
+    for m in ("haar", "iter"):
+        add(f"log-{m}", "log", {"functions.log_method": m})
+    add("log-input_in_01", "log", {}, (0.05, 0.95))
+    for m in ("bior", "NR", "log"):
+        add(f"reciprocal-{m}", "reciprocal", {"functions.reciprocal_method": m})
+    add("reciprocal-signed", "reciprocal", {"functions.reciprocal_all_pos": False}, "signed")
+    add("reciprocal-input_in_01", "reciprocal", {}, (0.05, 0.95))
+    for m in ("haar", "bior", "NR"):
+        add(f"inv_sqrt-{m}", "inv_sqrt", {"functions.inv_sqrt_method": m})
+    for m in ("haar", "NR"):
+        add(f"sqrt-{m}", "sqrt", {"functions.sqrt_method": m})
+    for m in ("haar", "bior", "NR", "haar-lut-only", "bior-lut-only"):
+        add(f"cossin-{m}", "cossin", {"functions.trigonometry_method": m})
+    add("log_softmax", "log_softmax", {})
+    add("softmax-one", "softmax", {}, (-6, 6))
+    add("log_softmax-one", "log_softmax", {}, (-6, 6))
+    # the crypten LUT truncation (local div, public remainder)
+    add("log-bior-crypten", "log", _CRYPTEN)
+    add("reciprocal-haar-crypten", "reciprocal", _CRYPTEN)
+    add("gelu-bior-crypten", "gelu", _CRYPTEN)
+    return cases
+
+
+FUNCTION_CASES = _function_cases()
+# Phase 8's bound on BertLarge's last block's output (hidden_stats'
+# scale-free relative L2) and its rounds, fixed from CPU runs before the
+# first run of the phase (PERF.md §6; scripts/torch_bert_bound.py, 24
+# blocks, vocab 30522, widths 64 and 256): the sound private forward reads
+# 0.104 and 0.100, the private forward without the least-felt block 0.200
+# and 0.269 (the plaintext without it 0.171 and 0.244); 3688 rounds at both
+# widths (every head dimension there, as BertLarge's 64, has an integer
+# square root).
+BERT_SCALE_FREE_L2 = 0.15
+BERT_ROUNDS = 3688
+# Phase 9: the bert-tiny-qnli checkpoint's 8 rows, its bound on the logits'
+# relative L2 error against the float64 classifier, the argmax agreement
+# and the rounds, from the same forward on the CPU before the first run of
+# the phase (scripts/torch_qnli_bound.py): 0.107 and 8 of 8 rows, 329
+# rounds; without block 1 the private logits read 0.591 (the plaintext's
+# 0.644), though every row keeps its argmax.
+QNLI_ROWS = 8
+QNLI_LOGITS_REL_L2 = 0.30
+QNLI_AGREE = 8
+QNLI_ROUNDS = 329
+# curl_tpu's (max, mean) |error| against float64 on each case's phase 3d
+# input (function_input at FUNCTION_SHAPE), the case's override on the
+# default configuration, read once on a CPU by
+# ``python3 tests/torch_function_reference.py dense``: the limits of phase 3d
+# and of the CPU test (function_tolerance) are taken from these
+CURL_TPU_DENSE_ERR = {
+    "sigmoid": (0.0910792, 0.0105943), "tanh": (0.182174, 0.0211966),
+    "erf": (0.0010181, 0.000112262), "silu": (0.031929, 0.00120784),
+    "relu": (1.52538e-05, 3.88923e-06), "sqrt": (0.0747446, 0.000712967),
+    "log": (0.0427695, 0.00034303), "sigmoid-bior": (0.02536, 0.00186956),
+    "tanh-bior": (0.0507352, 0.00374157), "sigmoid-haar-lut-only": (0.0910792, 0.0112059),
+    "sigmoid-bior-lut-only": (0.0250815, 0.00187089),
+    "sigmoid-reciprocal": (0.268249, 0.0865349), "tanh-reciprocal": (0.536498, 0.173042),
+    "sigmoid-chebyshev": (0.0383553, 0.00748378), "tanh-chebyshev": (0.0767106, 0.0149672),
+    "erf-haar": (0.206642, 0.0315093), "erf-haar-lut-only": (0.208534, 0.0336514),
+    "erf-bior-lut-only": (0.0010181, 0.000103717), "silu-haar": (0.264109, 0.0336425),
+    "silu-haar-lut-only": (1.61866, 0.314086),
+    "silu-bior-lut-only": (0.0333851, 0.00131364), "silu-sigmoid": (0.073418, 0.0141435),
+    "gelu-haar": (0.129414, 0.0128707), "gelu-haar-lut-only": (0.416312, 0.0777831),
+    "gelu-bior-lut-only": (0.0522714, 0.0028499), "gelu-erf": (0.000606689, 5.95138e-05),
+    "exp-haar": (0.929844, 0.0445112), "exp-bior": (0.861334, 0.0302432),
+    "log-haar": (0.161986, 0.00781385), "log-iter": (0.0383419, 0.0212396),
+    "log-input_in_01": (0.0162009, 0.000223458),
+    "reciprocal-bior": (0.0361897, 0.000308754),
+    "reciprocal-NR": (0.000475601, 8.68858e-05), "reciprocal-log": (0.0217396, 0.00105),
+    "reciprocal-signed": (0.0761372, 0.00200645),
+    "reciprocal-input_in_01": (1.99229, 0.0432653),
+    "inv_sqrt-haar": (0.0277041, 0.000219652), "inv_sqrt-bior": (0.0016116, 7.30204e-06),
+    "inv_sqrt-NR": (0.0374923, 0.000936852), "sqrt-haar": (0.627601, 0.0659967),
+    "sqrt-NR": (0.281319, 0.0334368), "cossin-haar": (0.290092, 0.0679749),
+    "cossin-bior": (0.0413594, 0.00452482), "cossin-NR": (0.0325278, 0.00604874),
+    "log_softmax": (0.0413109, 0.0271894), "softmax-one": (0, 0), "log_softmax-one": (0, 0),
+    "log-bior-crypten": (0.0427695, 0.000341539),
+    "reciprocal-haar-crypten": (0.0761372, 0.00200193),
+    "gelu-bior-crypten": (0.0502358, 0.00252282),
+}
+_erf_np = np.vectorize(math.erf)
+# The faults of the reference the port reproduces (ROADMAP Queue C), each
+# (tolerance against curl_tpu's eager output in the CPU test or None, the
+# pin that holds on the decoded output x -> got).
+FUNCTION_FAULTS = {
+    # the lut-only tanh reads tables over the sigmoid's domain at tanh's
+    # offset: haar's then reads tanh(2x), bior's about tanh(2x - 12) - 1;
+    # curl_tpu reads 0.420 and 1.211 from tanh(x) (tolerance: one bior cell)
+    "tanh-haar-lut-only": (0.3, lambda x, got: np.abs(got - np.tanh(x)).max() > 0.25
+                           and np.abs(got - np.tanh(2 * x)).max() < np.abs(got - np.tanh(x)).max()),
+    "tanh-bior-lut-only": (0.3, lambda x, got: np.abs(got - np.tanh(x)).max() > 1.0),
+    # the lut-only trig tables take cell means over whole periods: 0 everywhere
+    "cossin-haar-lut-only": (0.01, lambda x, got: np.abs(got).max() < 0.01),
+    "cossin-bior-lut-only": (0.01, lambda x, got: np.abs(got).max() < 0.01),
+    # split: garbage up to 4.0e9 in curl_tpu where exp(x) is at most 1
+    "exp-split": (None, lambda x, got: np.abs(got - np.exp(x)).max() > 1e6),
+    # e^64 * 2^16 overflows int64 in the signed tables: curl_tpu decodes
+    # haar's cells as -2^47 (INT64_MIN) or 0, bior's as 0
+    "exp-haar-signed": (None, lambda x, got: np.isin(got, (-2.0 ** 47, 0.0)).all()
+                        and (got == -2.0 ** 47).any()),
+    "exp-bior-signed": (None, lambda x, got: np.abs(got).max() < 1e-3),
+    # Taylor: pow(p) of an odd p >= 5 computes (x^3)^((p - 1) / 2); curl_tpu
+    # reads 176.48 from erf on [-2, 2]
+    "erf-Taylor": (None, lambda x, got: abs(np.abs(got - _erf_np(x)).max() - 176.48) < 2),
+}
+
+
+# Each case's (rounds, max and mean |error| against float64) at
+# FUNCTION_SHAPE on the CPU (``python3 scripts/torch_functions_bound.py``,
+# the composable route under bench.py's kernel configuration, phase 3d's
+# seed and inputs): the rounds phase 3d must count, and the port's errors
+# beside curl_tpu's (CURL_TPU_DENSE_ERR); the max is the worst of the 64
+# draws each of the 3072 grid points gets
+FUNCTION_CPU = {
+    "sigmoid": (19, 0.0920561, 0.0105836), "tanh": (19, 0.184127, 0.0211651),
+    "erf": (21, 0.0010181, 0.000111771), "silu": (28, 0.0319309, 0.00119819),
+    "relu": (8, 1.52538e-05, 3.88923e-06), "sqrt": (4, 0.0710003, 0.000712281),
+    "log": (4, 0.0427695, 0.000337705), "sigmoid-bior": (21, 0.0250815, 0.00186424),
+    "tanh-bior": (21, 0.050163, 0.00372204),
+    "sigmoid-haar-lut-only": (2, 0.0920561, 0.0112253),
+    "tanh-haar-lut-only": (2, 0.454309, 0.116337),
+    "sigmoid-bior-lut-only": (4, 0.0249787, 0.00185543),
+    "tanh-bior-lut-only": (4, 1.50762, 1.01173),
+    "sigmoid-reciprocal": (20, 0.268249, 0.0863735),
+    "tanh-reciprocal": (20, 0.536498, 0.172536),
+    "sigmoid-chebyshev": (40, 0.0383553, 0.00748377),
+    "tanh-chebyshev": (40, 0.0767106, 0.0149673), "erf-haar": (19, 0.208112, 0.0315451),
+    "erf-haar-lut-only": (2, 0.207086, 0.0337116),
+    "erf-bior-lut-only": (4, 0.0010181, 0.000103888),
+    "erf-Taylor": (56, 3.62334e+06, 26.2744), "silu-haar": (26, 0.262168, 0.0336581),
+    "silu-haar-lut-only": (2, 1.61866, 0.314551),
+    "silu-bior-lut-only": (4, 0.0333851, 0.00131279),
+    "silu-sigmoid": (21, 0.0727351, 0.0141007), "gelu-haar": (26, 0.129414, 0.0128687),
+    "gelu-haar-lut-only": (2, 0.416312, 0.077646),
+    "gelu-bior-lut-only": (4, 0.0534226, 0.00285253),
+    "gelu-erf": (24, 0.000606689, 5.93927e-05), "exp-split": (11, 4.01896e+09, 3.2651e+08),
+    "exp-haar": (10, 0.903176, 0.0443208), "exp-haar-signed": (2, 1.40737e+14, 6.04832e+13),
+    "exp-bior": (12, 0.872532, 0.0305271), "exp-bior-signed": (4, 20.0855, 2.86909),
+    "log-haar": (2, 0.161986, 0.00785994), "log-iter": (40, 0.0380909, 0.0212461),
+    "log-input_in_01": (5, 0.0154697, 0.0002255),
+    "reciprocal-bior": (4, 0.0361897, 0.000311187),
+    "reciprocal-NR": (38, 0.000482172, 8.684e-05),
+    "reciprocal-log": (12, 0.0220641, 0.00105072),
+    "reciprocal-signed": (11, 0.0761372, 0.00201212),
+    "reciprocal-input_in_01": (2, 1.99229, 0.0432619),
+    "inv_sqrt-haar": (2, 0.0277041, 0.000221578),
+    "inv_sqrt-bior": (4, 0.00162686, 7.32882e-06),
+    "inv_sqrt-NR": (34, 0.037477, 0.000936897), "sqrt-haar": (2, 0.627601, 0.0662513),
+    "sqrt-NR": (15, 0.281319, 0.0333915), "cossin-haar": (13, 0.290092, 0.067914),
+    "cossin-bior": (17, 0.0413747, 0.00455208), "cossin-NR": (37, 0.0308942, 0.006052),
+    "cossin-haar-lut-only": (3, 0.999998, 0.640057),
+    "cossin-bior-lut-only": (7, 0.999998, 0.640057),
+    "log_softmax": (140, 0.0414482, 0.0270666), "softmax-one": (0, 0, 0),
+    "log_softmax-one": (0, 0, 0), "log-bior-crypten": (3, 0.0427695, 0.00034271),
+    "reciprocal-haar-crypten": (1, 0.0761372, 0.00201143),
+    "gelu-bior-crypten": (27, 0.0502501, 0.0025308),
+}
+
+
+def function_tolerance(key):
+    """A case's limits on max and mean |error| against float64, for phase 3d
+    and the CPU test: twice curl_tpu's max on phase 3d's input (at least
+    the default functions' TOLS, and 0.01), but below the midpoint between
+    curl_tpu's max and the range of the function's values there, so that
+    no constant passes; and 1.25 times curl_tpu's mean there."""
+    top, mean = CURL_TPU_DENSE_ERR[key]
+    span = _function_range(key)
+    return min(max(2 * top, FUNCTION_TOLS.get(key, 0.01)), (top + span) / 2), 1.25 * mean + 1e-6
+
+
+@functools.lru_cache(maxsize=None)
+def _function_range(key):
+    """The range of a case's float64 values on phase 3d's input."""
+    return float(np.ptp(function_plain(key, function_input(key, FUNCTION_SHAPE))))
+
+
+def function_input(key, shape):
+    """A case's input: its domain's grid over the last axis, repeated over
+    the others (a "-one" case: one element on a trailing axis)."""
+    dom = FUNCTION_CASES[key][2]
+    if key.endswith("-one"):
+        shape = tuple(shape) + (1,)
+    if dom == "normal":
+        return np.random.default_rng(0).normal(size=shape) * 2
+    n = shape[-1] if not key.endswith("-one") else shape[-2]
+    if dom == "signed":
+        row = np.linspace(2, 32, n) * np.where(np.arange(n) % 2, -1.0, 1.0)
+    else:
+        row = np.linspace(dom[0], dom[1], n)
+    if key.endswith("-one"):
+        row = row[:, None]
+    return np.broadcast_to(row, shape).copy()
+
+
+def function_call(x, key):
+    fn = FUNCTION_CASES[key][0]
+    if key.endswith("input_in_01"):
+        return getattr(x, fn)(input_in_01=True)
+    return getattr(x, fn)()
+
+
+def function_plain(key, x):
+    """float64 values of a case's function on x."""
+    fn = FUNCTION_CASES[key][0]
+    if fn == "cossin":
+        return np.stack([np.cos(x), np.sin(x)])
+    if fn in ("log_softmax", "softmax"):
+        z = x - x.max(-1, keepdims=True)
+        lsm = z - np.log(np.exp(z).sum(-1, keepdims=True))
+        return lsm if fn == "log_softmax" else np.exp(lsm)
+    if fn in ("sigmoid", "silu"):
+        return (1 if fn == "sigmoid" else x) / (1 + np.exp(-x))
+    if fn == "gelu":
+        return x * (1 + _erf_np(x / math.sqrt(2))) / 2
+    if fn == "relu":
+        return np.maximum(x, 0)
+    if fn == "erf":
+        return _erf_np(x)
+    return {"tanh": np.tanh, "exp": np.exp, "log": np.log, "reciprocal": np.reciprocal,
+            "sqrt": np.sqrt, "inv_sqrt": lambda v: 1 / np.sqrt(v)}[fn](x)
 
 
 def log(msg):
@@ -989,6 +1288,12 @@ def random_gpt2_state(rng, seq, blocks, d=768, vocab=50257):
     _ln(sd, "ln", d)
     _lin(sd, rng, "fc", d, vocab)
     return sd
+
+
+def gpt_param_count(d, blocks, vocab, seq=SEQ):
+    """Parameters of a full GPT (random_gpt2_state's keys)."""
+    block = 4 * d + (3 * d * d + 3 * d) + (d * d + d) + (4 * d * d + 4 * d) + (4 * d * d + d)
+    return vocab * d + seq * d + blocks * block + 2 * d + vocab * d + vocab
 
 
 class SeededGPTState(Mapping):
@@ -1875,16 +2180,17 @@ def run_compressed(fw, bench_stats, gen):
     return res, failures
 
 
-def run_neo(dev, gen):
-    """Phase 4d: GPT-Neo 1.3B's geometry at full width through
-    GPT.build_compressed (chunked block linears at their default), under
-    bench.py's settings for the model."""
+def run_neo(dev, gen, tag="neo", model="GPTNeo", bound=NEO_SCALE_FREE_L2, rounds=None):
+    """Phase 4d (4f): GPT-Neo 1.3B's (2.7B's) geometry at full width
+    through GPT.build_compressed (chunked block linears at their default),
+    under bench.py's settings for the model; ``rounds``, where given, the
+    count the forward must equal."""
     import curl_tpu_torch as ct
+    from curl_tpu_torch import models
     from curl_tpu_torch.config import cfg
-    from curl_tpu_torch.models import GPTNeo
     from curl_tpu_torch.nn.module import ChunkedLinear
 
-    geom = GPTNeo.GEOM
+    geom = getattr(models, model).GEOM
     d, heads, blocks, vocab = (geom[k] for k in ("embed_dim", "num_heads", "num_blocks",
                                                  "vocab_size"))
     sd = SeededGPTState(1234, SEQ, blocks, d, vocab)
@@ -1902,39 +2208,367 @@ def run_neo(dev, gen):
     del W
     torch.cuda.empty_cache()
     j = int(np.argmin(skip_err))
-    log(f"[neo] float64 reference and {blocks} plaintext forwards with one block left out in "
+    log(f"[{tag}] float64 reference and {blocks} plaintext forwards with one block left out in "
         f"{time.perf_counter() - t0:.1f} s; scale-free rel L2 without one block: min "
         f"{skip_err[j]:.5f} (block {j}), max {max(skip_err):.5f}")
 
     ct.init(world_size=2, seed=SEED)
     config = dict(BENCH_CONFIG, **{"models.head_chunk_positions": SEQ})
     with cfg.temp_override(config):
-        model, resident = build_timed("neo", **geom, seq_len=SEQ, head_vocab_chunks=HEAD_CHUNKS,
+        model, resident = build_timed(tag, **geom, seq_len=SEQ, head_vocab_chunks=HEAD_CHUNKS,
                                       state_dict=sd)
         chunked = sum(isinstance(m, ChunkedLinear) for m in model.blocks.modules())
         xe = ct.cryptensor(tokens, precision=0)
-        res, failures = drive("neo", model, xe, reps=2)
+        res, failures = drive(tag, model, xe, reps=2)
         fault = hidden_stats(private_hidden(model, xe, skip=j).get_plain_text(), ref)
-        failures += open_checks("neo", model, res)
-        failures += check_open_routes("neo", model, gen)
-        profile_composable("neo", model, xe, res["best_s"])
+        failures += open_checks(tag, model, res)
+        failures += check_open_routes(tag, model, gen)
+        profile_composable(tag, model, xe, res["best_s"])
     sound = hidden_stats(res["hidden"], ref)
-    log(f"[neo] {chunked} ChunkedLinear modules in the blocks; resident share bytes {resident} "
-        f"({resident / 2**30:.3f} GiB)")
-    log(f"[neo] final-LN hidden: {fmt_stats(sound)} (bounds: max {HIDDEN_STATE_ATOL}, "
-        f"scale-free rel L2 {NEO_SCALE_FREE_L2})")
-    log(f"[neo] planted fault, private forward without block {j}: {fmt_stats(fault)}")
+    # the materialized model's share bytes: every party's share of every
+    # parameter, 8 bytes an element
+    materialized = 2 * 8 * gpt_param_count(d, blocks, vocab)
+    log(f"[{tag}] {chunked} ChunkedLinear modules in the blocks; resident share bytes {resident} "
+        f"({resident / 2**30:.3f} GiB), {resident / materialized:.4f} of the materialized "
+        f"model's {materialized}")
+    log(f"[{tag}] rounds {res['stats']['rounds']}" + ("" if rounds is None else
+        f" (the CPU count at this geometry: {rounds})"))
+    log(f"[{tag}] final-LN hidden: {fmt_stats(sound)} (bounds: max {HIDDEN_STATE_ATOL}, "
+        f"scale-free rel L2 {bound})")
+    log(f"[{tag}] planted fault, private forward without block {j}: {fmt_stats(fault)}")
     if res["out"].shape != (1, SEQ, vocab):
-        failures.append(f"neo forward output {res['out'].shape} != (1, {SEQ}, {vocab})")
+        failures.append(f"{tag} forward output {res['out'].shape} != (1, {SEQ}, {vocab})")
     if chunked != 3 * blocks:
-        failures.append(f"neo has {chunked} ChunkedLinear modules, not {3 * blocks}")
-    if sound["max_abs"] > HIDDEN_STATE_ATOL or sound["scale_free_l2"] > NEO_SCALE_FREE_L2:
-        failures.append(f"neo final-LN hidden error ({fmt_stats(sound)}) exceeds its bounds")
-    if fault["scale_free_l2"] <= NEO_SCALE_FREE_L2:
-        failures.append(f"neo planted fault ({fmt_stats(fault)}) passes the bound "
-                        f"{NEO_SCALE_FREE_L2}")
+        failures.append(f"{tag} has {chunked} ChunkedLinear modules, not {3 * blocks}")
+    if resident > 0.6 * materialized:
+        failures.append(f"{tag} resident share bytes {resident} > 0.6 of {materialized}")
+    if rounds is not None and res["stats"]["rounds"] != rounds:
+        failures.append(f"{tag} rounds {res['stats']['rounds']} != the CPU count {rounds}")
+    if sound["max_abs"] > HIDDEN_STATE_ATOL or sound["scale_free_l2"] > bound:
+        failures.append(f"{tag} final-LN hidden error ({fmt_stats(sound)}) exceeds its bounds")
+    if fault["scale_free_l2"] <= bound:
+        failures.append(f"{tag} planted fault ({fmt_stats(fault)}) passes the bound {bound}")
     # phase 6 captures this model's forward
-    res.update(model=model, xe=xe, ref=ref, config=config, bound=NEO_SCALE_FREE_L2)
+    res.update(model=model, xe=xe, ref=ref, config=config, bound=bound)
+    return res, failures
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: the function library at the GELU's size
+# ---------------------------------------------------------------------------
+
+def add_launches(total, launches, by_op):
+    """Accumulate one run's read_launches() into ``total``."""
+    for name, counts in (("launches", launches), ("by_op", by_op)):
+        for k, n in counts.items():
+            total[name][k] = total[name].get(k, 0) + n
+
+
+def run_functions():
+    """Phase 3d: each (function, method) of FUNCTION_CASES on its grid at
+    FUNCTION_SHAPE, by the fused route (bench.py's kernel configuration)
+    and the composable route (the fused knobs off): max |error| against
+    float64, rounds and bytes (equal on both routes, the rounds the CPU
+    count), launches by kernel. Every launch of the phase (the inputs'
+    sharing and both routes) is counted and recorded for phase 5."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+
+    ct.init(world_size=2, seed=SEED)
+    total = {"launches": {}, "by_op": {}}
+    failures, rows = [], {}
+    t_phase = time.perf_counter()
+    with recording_launches() as calls:
+        for key, (_, over, _) in FUNCTION_CASES.items():
+            x = function_input(key, FUNCTION_SHAPE)
+            reset_launches()
+            xe = ct.cryptensor(x)
+            add_launches(total, *read_launches()[:2])  # the input's sharing
+            got = {}
+            for route, config in (("fused", BENCH_CONFIG), ("composable", FUSED_OFF)):
+                with cfg.temp_override(dict(config, **over)):
+                    reset_launches()
+                    ct.reset_communication_stats()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = function_call(xe, key)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    launches, by_op, _ = read_launches()
+                    stats = ct.get_communication_stats()
+                add_launches(total, launches, by_op)
+                got[route] = (out, stats, launches, secs)
+            out, stats, launches, secs = got["fused"]
+            dec = (np.stack([o.get_plain_text() for o in out]) if isinstance(out, tuple)
+                   else out.get_plain_text())
+            diff = np.abs(dec - function_plain(key, x))
+            err, mean = float(diff.max()), float(diff.mean())
+            off = got["composable"][1]
+            fault = key in FUNCTION_FAULTS
+            if fault:
+                ok = bool(FUNCTION_FAULTS[key][1](x, dec))
+                limit = "the reference's fault reproduced" if ok else "FAULT NOT REPRODUCED"
+            else:
+                tol, mean_tol = function_tolerance(key)
+                ok = bool(np.isfinite(dec).all()) and err <= tol and mean <= mean_tol
+                limit = f"limits {tol:g}, mean {mean_tol:g}"
+            want_rounds = FUNCTION_CPU[key][0]
+            same = (stats["rounds"], stats["bytes"]) == (off["rounds"], off["bytes"])
+            ran = {k: n for k, n in launches.items() if n}
+            log(f"[functions] {key} {over or 'default'}: max |err| {err:.6g}, mean {mean:.6g} "
+                f"({limit}); "
+                f"{stats['rounds']} rounds (CPU {want_rounds}), {stats['bytes']} bytes; "
+                f"composable route {off['rounds']} rounds, {off['bytes']} bytes"
+                f"{'' if same else ' DIFFER'}; fused {secs * 1e3:.2f} ms, composable "
+                f"{got['composable'][3] * 1e3:.2f} ms; launches {ran}")
+            rows[key] = dict(err=err, mean_err=mean, rounds=stats["rounds"], bytes=stats["bytes"])
+            if not ok:
+                failures.append(f"functions {key}: max |err| {err}, mean {mean} ({limit})")
+            if not same:
+                failures.append(f"functions {key}: fused {stats} != composable {off}")
+            if stats["rounds"] != want_rounds:
+                failures.append(f"functions {key}: {stats['rounds']} rounds != CPU {want_rounds}")
+            del got, out, xe
+    log(f"[functions] {len(FUNCTION_CASES)} (function, method) cases on {FUNCTION_SHAPE}, both "
+        f"routes, in {time.perf_counter() - t_phase:.1f} s; launches {total['launches']}")
+    by_kernel = {k: total["launches"].get(k, 0) for k in PATH_FAMILIES + (MASKED,)}
+    if recorded_launches(calls) != (by_kernel, total["by_op"]):
+        failures.append(f"functions recorded launches {recorded_launches(calls)} != counted "
+                        f"{(by_kernel, total['by_op'])}")
+    missing = [k for k in ("ring_mm", "philox", "fused_mul", "ltz", "max_step")
+               if not by_kernel.get(k)]
+    if missing:
+        failures.append(f"functions launched no {missing}")
+    torch.cuda.empty_cache()
+    return dict(calls=calls, launches=by_kernel, by_op=total["by_op"], rows=rows), failures
+
+
+# ---------------------------------------------------------------------------
+# Phases 8 and 9: BERT
+# ---------------------------------------------------------------------------
+
+def bert_hidden(model, xe, skip=None):
+    """The last block's output of a private Bert forward, block ``skip``
+    left out."""
+    h = model.ln(model.embed(xe))
+    for i, block in enumerate(model.blocks):
+        if i != skip:
+            h = block(h)
+    return h
+
+
+def run_bert(dev):
+    """Phase 8: BertLarge as bench.py builds it for BENCH_MODEL=BertLarge
+    (bench.py:201-226): ``BertLarge(seq_len=64, full=True)`` encrypted by
+    party 0, materialized (no GEOM), under bench.py's kernel configuration
+    with head_chunk_positions 64, weights from a numpy seed, bench.py's
+    tokens: latency, rounds, bytes, launches, peak memory; the last block's
+    output against float64 under BERT_SCALE_FREE_L2, and one block left out
+    above it."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.models import BertLarge, load_numpy_state_dict, plain_bert_forward
+
+    ct.init(world_size=2, seed=SEED)
+    t0 = time.perf_counter()
+    model = BertLarge(seq_len=SEQ, full=True)
+    d, heads, blocks, vocab = (model.embed_dim, model.blocks._modules["0"].attn.num_heads,
+                               model.num_blocks, model.vocab_size)
+    sd = random_gpt2_state(np.random.default_rng(4321), SEQ, blocks, d=d, vocab=vocab)
+    load_numpy_state_dict(model, sd)
+    torch.cuda.reset_peak_memory_stats()
+    model.encrypt(src=0)
+    torch.cuda.synchronize()
+    resident = model.resident_share_bytes()
+    log(f"[bert] BertLarge ({d} wide, {heads} heads, {blocks} blocks, vocab {vocab}) built and "
+        f"encrypted in {time.perf_counter() - t0:.1f} s; resident shares {resident / 2**30:.3f} GiB")
+    tokens = np.random.default_rng(0).integers(0, 1000, size=(1, SEQ)).astype(np.float64)
+    ids = tokens.astype(np.int64)
+    t0 = time.perf_counter()
+    W = {k: torch.as_tensor(v, dtype=torch.float64, device=dev) for k, v in sd.items()}
+    ref = plain_bert_forward(W, ids, heads, blocks, dev, head=False)[0].cpu().numpy()
+    skip_err = [hidden_stats(plain_bert_forward(W, ids, heads, blocks, dev, skip=j,
+                                                head=False)[0].cpu().numpy(),
+                             ref)["scale_free_l2"] for j in range(blocks)]
+    del W, sd
+    j = int(np.argmin(skip_err))
+    log(f"[bert] float64 reference and {blocks} plaintext forwards with one block left out in "
+        f"{time.perf_counter() - t0:.1f} s; scale-free rel L2 without one block: min "
+        f"{skip_err[j]:.5f} (block {j}), max {max(skip_err):.5f}")
+    xe = ct.cryptensor(tokens, precision=0)
+    config = dict(BENCH_CONFIG, **{"models.head_chunk_positions": SEQ})
+    failures = []
+    with cfg.temp_override(config):
+        t0 = time.perf_counter()
+        with recording_launches() as calls:
+            h = bert_hidden(model, xe)
+            probs = model.softmax(model.fc(h))
+        hidden = h.get_plain_text()
+        log(f"[bert] warm-up forward {time.perf_counter() - t0:.2f} s")
+        lat = []
+        for i in range(3):
+            if i == 2:
+                reset_launches()
+                ct.reset_communication_stats()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(xe)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if i == 2:
+                launches, by_op, _ = read_launches()
+                stats = ct.get_communication_stats()
+                peak = torch.cuda.max_memory_allocated()
+        out = out.get_plain_text()
+        busy = profile_forward(model, xe, min(lat), tag="profile bert")
+        fault = hidden_stats(bert_hidden(model, xe, skip=j).get_plain_text(), ref)
+    sound = hidden_stats(hidden, ref)
+    log(f"[bert] latencies {', '.join(f'{x:.4f}' for x in lat)} s; "
+        f"{SEQ / min(lat):.1f} tokens/s (best)")
+    log(f"[bert] one forward: {stats['rounds']} rounds (the CPU count {BERT_ROUNDS}), "
+        f"{stats['bytes']} bytes per party; launches {launches}; fused_mul by op {by_op}")
+    log(f"[bert] peak device memory {peak / 2**30:.2f} GiB in the forward, "
+        f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before it")
+    log(f"[bert] last block's output: {fmt_stats(sound)} (bound: scale-free rel L2 "
+        f"{BERT_SCALE_FREE_L2})")
+    log(f"[bert] planted fault, private forward without block {j}: {fmt_stats(fault)}")
+    if out.shape != (1, SEQ, vocab) or not np.isfinite(out).all() or not np.isfinite(hidden).all():
+        failures.append(f"bert output {out.shape} or its hidden state is not finite")
+    if stats["rounds"] != BERT_ROUNDS:
+        failures.append(f"bert rounds {stats['rounds']} != the CPU count {BERT_ROUNDS}")
+    if sound["scale_free_l2"] > BERT_SCALE_FREE_L2:
+        failures.append(f"bert last block's output ({fmt_stats(sound)}) exceeds its bound")
+    if fault["scale_free_l2"] <= BERT_SCALE_FREE_L2:
+        failures.append(f"bert planted fault ({fmt_stats(fault)}) passes the bound "
+                        f"{BERT_SCALE_FREE_L2}")
+    missing = [k for k, n in launches.items()
+               if n == 0 and k not in ("seed_expand", "open", MASKED)]
+    missing += unlaunched_chains(by_op)
+    if missing:
+        failures.append(f"bert forward launched no {missing}: {launches}, {by_op}")
+    if recorded_launches(calls) != (launches, by_op):
+        failures.append(f"bert recorded launches {recorded_launches(calls)} != counted "
+                        f"{(launches, by_op)}")
+    res = dict(calls=calls, launches=launches, by_op=by_op, stats=stats, best_s=min(lat),
+               busy_ms=busy, peak=peak)
+    del model, probs, h, xe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+QNLI_DIR = os.path.join("benchmarks", "checkpoints", "bert-tiny-qnli")
+
+
+def qnli_rows(rng, rows, seq):
+    """[CLS] a [SEP] b [SEP] then [PAD] to seq: word ids in [5, 9322) (the
+    words of vocab.txt below its first [unused] entry), segments of 3 to
+    20 words, type ids 0 for the first segment, 1 for the second."""
+    ids = np.zeros((rows, seq), dtype=np.int64)
+    types = np.zeros((rows, seq), dtype=np.int64)
+    for r in range(rows):
+        a, b = rng.integers(3, 21, size=2)
+        ids[r, 0] = 2
+        ids[r, 1:1 + a] = rng.integers(5, 9322, size=a)
+        ids[r, 1 + a] = 3
+        ids[r, 2 + a:2 + a + b] = rng.integers(5, 9322, size=b)
+        ids[r, 2 + a + b] = 3
+        types[r, 2 + a:3 + a + b] = 1
+    return ids, types
+
+
+def qnli_model(root):
+    """The bert-tiny-qnli checkpoint through the port's reader as
+    BertTinyForSequenceClassification(seq_len=64): (plaintext model, its
+    float64 state dict, 8 rows of ids and type ids from numpy seed 0)."""
+    from curl_tpu_torch.models import BertTinyForSequenceClassification, load_safetensors
+
+    model = BertTinyForSequenceClassification(seq_len=SEQ)
+    model.load_hf_state_dict(load_safetensors(os.path.join(root, QNLI_DIR, "model.safetensors")))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    ids, types = qnli_rows(np.random.default_rng(0), QNLI_ROWS, SEQ)
+    return model, sd, ids, types
+
+
+def qnli_private(model, ids_e, types_e, skip=None):
+    """Private logits, block ``skip`` left out."""
+    h = model.embed(ids_e, types_e)
+    for i, block in enumerate(model.blocks):
+        if i != skip:
+            h = block(h)
+    return model.head(h)
+
+
+def rel_l2(got, ref):
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def run_qnli(dev, root):
+    """Phase 9: the repo's trained bert-tiny-qnli checkpoint, read by the
+    port's own reader, classifies 8 rows privately under bench.py's kernel
+    configuration: the logits' relative L2 error against the float64
+    classifier under QNLI_LOGITS_REL_L2, the argmax agreement, block 1 left
+    out above the bound; latency, rounds, bytes."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.models import plain_classifier_forward
+
+    ct.init(world_size=2, seed=SEED)
+    model, sd, ids, types = qnli_model(root)
+    model.encrypt(src=0)
+    ref = plain_classifier_forward(sd, ids, types, model.cfg, device=dev).cpu().numpy()
+    plain_fault = plain_classifier_forward(sd, ids, types, model.cfg, device=dev,
+                                           skip=1).cpu().numpy()
+    ids_e = ct.cryptensor(ids.astype(np.float64), precision=0)
+    types_e = ct.cryptensor(types.astype(np.float64), precision=0)
+    failures = []
+    with cfg.temp_override(BENCH_CONFIG):
+        with recording_launches() as calls:
+            logits = model(ids_e, types_e).get_plain_text()
+        lat = []
+        for i in range(3):
+            if i == 2:
+                reset_launches()
+                ct.reset_communication_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(ids_e, types_e)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if i == 2:
+                launches, by_op, _ = read_launches()
+                stats = ct.get_communication_stats()
+        fault = qnli_private(model, ids_e, types_e, skip=1).get_plain_text()
+    err, fault_err = rel_l2(logits, ref), rel_l2(fault, ref)
+    agree = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    log(f"[qnli] {QNLI_DIR} through load_safetensors: {len(sd)} parameters; {QNLI_ROWS} rows, "
+        f"{int((ids > 0).sum())} of {ids.size} positions words or markers")
+    log(f"[qnli] latencies {', '.join(f'{x:.4f}' for x in lat)} s "
+        f"({QNLI_ROWS * SEQ / min(lat):.1f} tokens/s best); {stats['rounds']} rounds (the CPU "
+        f"count {QNLI_ROUNDS}), {stats['bytes']} bytes per party; launches {launches}")
+    log(f"[qnli] logits against float64: relative L2 {err:.5f} (bound {QNLI_LOGITS_REL_L2}); "
+        f"argmax agrees on {agree} of {QNLI_ROWS} rows (the CPU run: {QNLI_AGREE}); the "
+        f"plaintext without block 1: {rel_l2(plain_fault, ref):.5f}")
+    log(f"[qnli] planted fault, private forward without block 1: relative L2 {fault_err:.5f}")
+    log(f"[qnli] private logits {np.round(logits, 4).tolist()}; float64 {np.round(ref, 4).tolist()}")
+    if not np.isfinite(logits).all() or logits.shape != (QNLI_ROWS, 2):
+        failures.append(f"qnli logits {logits.shape} not finite ({QNLI_ROWS}, 2)")
+    if err > QNLI_LOGITS_REL_L2:
+        failures.append(f"qnli logits relative L2 {err} > {QNLI_LOGITS_REL_L2}")
+    if fault_err <= QNLI_LOGITS_REL_L2:
+        failures.append(f"qnli planted fault {fault_err} passes the bound {QNLI_LOGITS_REL_L2}")
+    if agree < QNLI_AGREE:
+        failures.append(f"qnli argmax agrees on {agree} rows, the CPU run on {QNLI_AGREE}")
+    if stats["rounds"] != QNLI_ROUNDS:
+        failures.append(f"qnli rounds {stats['rounds']} != the CPU count {QNLI_ROUNDS}")
+    if recorded_launches(calls) != (launches, by_op):
+        failures.append(f"qnli recorded launches {recorded_launches(calls)} != counted "
+                        f"{(launches, by_op)}")
+    res = dict(calls=calls, launches=launches, by_op=by_op, stats=stats, best_s=min(lat))
+    del model
+    torch.cuda.empty_cache()
     return res, failures
 
 
@@ -1942,7 +2576,8 @@ def run_neo(dev, gen):
 # Phase 6: the forward captured as a CUDA graph (compile_parties)
 # ---------------------------------------------------------------------------
 
-# what phase 6 keeps of a phase 4c or 4d run
+# what phase 6 keeps of a phase 4c, 4d or 4f run, and each path's phase
+PHASE_OF = {"compressed": "4c", "neo": "4d", "neo_large": "4f"}
 CAPTURE_KEYS = ("model", "xe", "ref", "config", "bound", "stats", "best_s")
 # the capture's seed, then the replays' (each a fresh seed)
 CAPTURE_SEED = 101
@@ -2051,7 +2686,7 @@ def run_captured(path, res):
     log(f"[{tag}] the capture's launches {launches}; fused_mul and max_step by op {by_op}")
     log(f"[{tag}] replay latencies {', '.join(f'{x:.4f}' for x in lat)} s: best {best:.4f} s, "
         f"{SEQ / best:.1f} tokens/s; the eager forward beside it {eager_s:.4f} s (phase "
-        f"{'4c' if path == 'compressed' else '4d'}'s best {res['best_s']:.4f} s)")
+        f"{PHASE_OF[path]}'s best {res['best_s']:.4f} s)")
     log(f"[{tag}] device memory: the graph's pool and buffers hold {resident / 2**30:.3f} GiB "
         f"after the capture; peak {peak / 2**30:.3f} GiB above the {held / 2**30:.2f} GiB "
         f"held before it")
@@ -2067,8 +2702,7 @@ def run_captured(path, res):
         "two seeds different shares": not torch.equal(first[0].share, other[0].share),
         "tokens at another address: one capture anew, then the same shares each call":
             moved_captures == 1 and all(same(m, other) for m in moved),
-        "rounds and bytes of the capture equal the eager forward's and phase "
-        f"{'4c' if path == 'compressed' else '4d'}'s":
+        f"rounds and bytes of the capture equal the eager forward's and phase {PHASE_OF[path]}'s":
             (stats["rounds"], stats["bytes"]) == (eager_stats["rounds"], eager_stats["bytes"])
             == (res["stats"]["rounds"], res["stats"]["bytes"]) and after == stats,
         "the capture launched every kernel the eager forward launched, as often":
@@ -2645,9 +3279,11 @@ def philox_size_classes(path, mine):
             f"{_describe('philox', sig)}")
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
 def main():
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+    sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this runs on a CUDA card")
     import curl_tpu_torch  # noqa: F401  (fails where the package is missing)
@@ -2700,13 +3336,17 @@ def main():
 
 
 def run_paths(dev, gen):
-    """Phases 4-5: each path's forward, then every launch signature any of
-    them recorded, held bit-exact and timed; (the kernels' JSON entries,
-    the failed checks)."""
+    """Phases 3d-5: the function library, each path's forward, then every
+    launch signature any of them recorded, held bit-exact and timed; (the
+    kernels' JSON entries, the failed checks)."""
     # each path: the signatures its warm-up forward recorded, and the launch
     # counts of one forward, reset just before it and read just after
-    forward, failures = run_forward(dev)
-    paths = {"forward": (forward.pop("calls"), forward.pop("launches"), forward.pop("by_op"))}
+    functions, failures = run_functions()
+    paths = {"functions": (functions["calls"], functions["launches"], functions["by_op"])}
+    del functions
+    forward, fw_failures = run_forward(dev)
+    failures += fw_failures
+    paths["forward"] = (forward.pop("calls"), forward.pop("launches"), forward.pop("by_op"))
     launches, by_op, calls, bench_failures, bench_stats = run_bench_forward(forward)
     failures += bench_failures
     paths["bench"] = (calls, launches, by_op)
@@ -2724,11 +3364,20 @@ def run_paths(dev, gen):
     neo, neo_failures = run_neo(dev, gen)
     failures += neo_failures
     paths["neo"] = (neo["calls"], neo["launches"], neo["by_op"])
-    # phase 7 before phase 5, which holds its launch signatures too
+    neo_large, nl_failures = run_neo(dev, gen, tag="neo_large", model="GPTNeoLarge",
+                                     bound=NEO_LARGE_SCALE_FREE_L2, rounds=NEO_LARGE_ROUNDS)
+    failures += nl_failures
+    paths["neo_large"] = (neo_large["calls"], neo_large["launches"], neo_large["by_op"])
+    # phases 7, 8 and 9 before phase 5, which holds their launch signatures too
     generated, gen_failures = run_generate(sd)
     failures += gen_failures
     paths[GENERATE_PATH] = (generated["calls"], generated["launches"], generated["by_op"])
     del sd
+    for name, run in (("bert", lambda: run_bert(dev)), ("qnli", lambda: run_qnli(dev, ROOT))):
+        res, more = run()
+        failures += more
+        paths[name] = (res["calls"], res["launches"], res["by_op"])
+        del res
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
@@ -2744,16 +3393,17 @@ def run_paths(dev, gen):
             + f"; max_step launches {launches['max_step']}: " + ", ".join(
             f"{tag} {by_op.get(tag, 0)}" for tag in MAX_STEP_TAGS))
 
-    # phase 6: the compressed GPT-2 and GPT-Neo forwards through
-    # compile_parties, captured once and replayed; each model freed after
+    # phase 6: the compressed GPT-2, GPT-Neo and GPT-Neo 2.7B forwards
+    # through compile_parties, captured once and replayed; each model freed
+    # after
     captured = {GENERATE_PATH: generated["captured"]}
     del generated
-    for p, res in (("compressed", compressed), ("neo", neo)):
+    for p, res in (("compressed", compressed), ("neo", neo), ("neo_large", neo_large)):
         captured[p], cap_failures = run_captured(p, res)
         failures += cap_failures
         res.clear()
         torch.cuda.empty_cache()
-    del compressed, neo
+    del compressed, neo, neo_large
 
     def counted(p, name):
         """The launches one forward of path p counted for a JSON entry."""

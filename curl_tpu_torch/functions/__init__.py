@@ -5,4 +5,5 @@ from . import regular  # noqa: F401  (structure ops, mean/var/prod)
 from . import logic  # noqa: F401    (comparisons, sign)
 from . import sampling  # noqa: F401  (weighted_index)
 from . import maximum  # noqa: F401  (max, max_value)
+from . import power  # noqa: F401  (pow, pos_pow, polynomial, norm)
 from . import approximations  # noqa: F401  (LUT nonlinearities)

@@ -10,7 +10,7 @@ then ``eq`` against it; ties are broken by a weighted random one-hot
 "cuda" each stage of ``scan_reduction`` (a chunk fold's steps, the
 butterfly's steps) is one fused pass (``kernels/max_step.py``), for the
 softmax's max and the argmax alike. ``double_log_reduction`` and
-``accelerated_cascade`` are queue item A10.
+``accelerated_cascade`` are queue item A10b.
 """
 
 from __future__ import annotations
@@ -207,7 +207,7 @@ def _max_helper_all_tree_reductions(enc_tensor, dim=None, method="log_reduction"
     helpers = {"log_reduction": _max_helper_log_reduction,
                "scan_reduction": _max_helper_scan_reduction}
     if method in _LATER:
-        raise NotImplementedError(f"max_method {method!r} is not ported yet (ROADMAP A10)")
+        raise NotImplementedError(f"max_method {method!r} is not ported yet (ROADMAP A10b)")
     if method not in helpers:
         raise RuntimeError("Unknown max method")
     if enc_tensor.dim() == 0:

@@ -5,8 +5,9 @@ the private embedding lookup, a final LayerNorm, the LM head and a softmax
 over the vocabulary. The blocks run as a plain loop where the JAX package
 scans them. ``causal=True`` masks the attention causally, as a served
 (generating) GPT does. ``GPT.build_compressed`` builds the seed-compressed
-model that bench.py runs (GPT-2, and GPT-Neo 1.3B's geometry): vocab-chunked
-embedding and LM head, and at 1024 wide and above chunked block linears.
+model that bench.py runs (GPT-2, and GPT-Neo 1.3B's and 2.7B's
+geometries): vocab-chunked embedding and LM head, and at 1024 wide and
+above chunked block linears.
 ``models.head_chunk_positions`` runs the embedding and the head over chunks
 of positions; a materialized embedding table and LM-head weight are then
 Beaver-masked once a forward (``_premask_linear``) and reused by every
@@ -269,6 +270,15 @@ class GPTNeo(GPT):
 
     def __init__(self, seq_len, full=True, causal=False):
         super().__init__(seq_len=seq_len, full=full, causal=causal, **GPTNeo.GEOM)
+
+
+class GPTNeoLarge(GPT):
+    """GPT-Neo 2.7B's geometry (gpt.py:429-435); built compressed."""
+
+    GEOM = dict(embed_dim=2560, num_heads=20, num_blocks=32, vocab_size=50257)
+
+    def __init__(self, seq_len, full=True, causal=False):
+        super().__init__(seq_len=seq_len, full=full, causal=causal, **GPTNeoLarge.GEOM)
 
 
 def load_numpy_state_dict(model: nn.Module, sd) -> nn.Module:

@@ -135,6 +135,9 @@ class MPCTensor:
     def __repr__(self):
         return f"MPCTensor({self._tensor}, ptype={self.ptype})"
 
+    def clone(self):
+        return MPCTensor(self._tensor.clone(), self.ptype)
+
     # -- conversion --------------------------------------------------------
     def to_ptype(self, ptype, **kwargs):
         """A2B / B2A conversion (reference mpc.py:100-151)."""
@@ -246,6 +249,14 @@ class MPCTensor:
         """Division by a public value."""
         return self._wrap(self._tensor.div(y))
 
+    def divmod(self, y):
+        """(self // y, self % y) for a public integer y (mpc.py:354)."""
+        d, r = self._tensor.divmod(y)
+        return self._wrap(d), self._wrap(r)
+
+    def mod(self, y):
+        return self._wrap(self._tensor.mod(y))
+
     def egk_trunc_pr(self, l, m):
         return self._wrap(self._tensor.egk_trunc_pr(l, m))
 
@@ -270,11 +281,21 @@ class MPCTensor:
     __radd__ = add
     __sub__ = sub
 
+    def __rsub__(self, y):
+        """y - self for a public y (mpc.py:400)."""
+        return self.neg().add(y)
+
+    def __rtruediv__(self, y):
+        """y / self for a public y (mpc.py:411): y times the private
+        reciprocal."""
+        return self.reciprocal().mul(y)
+
     __mul__ = mul
     __rmul__ = mul
     __matmul__ = matmul
     __truediv__ = div
     __neg__ = neg
+    __mod__ = mod
 
     def __getitem__(self, idx):
         return self._wrap(self._tensor[idx])

@@ -95,6 +95,11 @@ class ArithmeticSharedTensor:
     def with_share(self, share) -> "ArithmeticSharedTensor":
         return ArithmeticSharedTensor(share, self.encoder)
 
+    def clone(self):
+        """The same shares under the same encoder (arithmetic.py:136): the
+        share tensor is shared, as no op writes a share in place."""
+        return ArithmeticSharedTensor(self.share, self.encoder)
+
     def __repr__(self):
         return f"ArithmeticSharedTensor(shape={self.shape}, scale={self.encoder.scale})"
 
@@ -217,6 +222,15 @@ class ArithmeticSharedTensor:
         if isinstance(y, numbers.Real):
             return self.mul(1.0 / y)
         return self.mul(1.0 / _public_tensor(y, constant=True).to(torch.float64))
+
+    def divmod(self, y: int):
+        """(self // y, self % y) in the encoded domain (arithmetic.py:327):
+        the local truncation, then the remainder self - y * (self // y)."""
+        divisor = self.div(y)
+        return divisor, self.sub(divisor.mul(int(y)))
+
+    def mod(self, y: int):
+        return self.divmod(y)[1]
 
     def egk_trunc_pr(self, l: int, m: int):
         """EGK+20 probabilistic truncation by m bits (arithmetic.py:508)."""

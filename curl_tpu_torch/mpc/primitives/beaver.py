@@ -25,7 +25,7 @@ head over chunks of positions) can be Beaver-masked once
 once, each later product then draws only its input-sized a and reveals only
 eps = x - a. Not ported: the reference's tuple one-hot forms (and with them
 the private embedding of more than two parties), active security, and the
-ring convolutions (queue item A10).
+ring convolutions (queue item A10b).
 """
 
 from __future__ import annotations
@@ -212,7 +212,7 @@ def matmul(x, y):
 
 def _no_conv(op):
     def conv(x, y, **kwargs):
-        raise NotImplementedError(f"the ring convolution {op} is not ported yet (ROADMAP A10)")
+        raise NotImplementedError(f"the ring convolution {op} is not ported yet (ROADMAP A10b)")
 
     conv.__name__ = op
     return conv

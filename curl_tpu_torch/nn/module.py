@@ -205,9 +205,44 @@ class Linear(Module):
         return out
 
 
+class ReLU(Module):
+    def forward(self, x):
+        return x.relu()
+
+
+class ReLU6(Module):
+    def forward(self, x):
+        return x.hardtanh(0, 6)
+
+
 class GELU(Module):
     def forward(self, x):
         return x.gelu()
+
+
+class SiLU(Module):
+    def forward(self, x):
+        return x.silu()
+
+
+class Sigmoid(Module):
+    def forward(self, x):
+        return x.sigmoid()
+
+
+class Tanh(Module):
+    def forward(self, x):
+        return x.tanh()
+
+
+class Hardtanh(Module):
+    def __init__(self, min_val=-1.0, max_val=1.0):
+        super().__init__()
+        self.min_val = min_val
+        self.max_val = max_val
+
+    def forward(self, x):
+        return x.hardtanh(self.min_val, self.max_val)
 
 
 class Softmax(Module):
@@ -217,6 +252,15 @@ class Softmax(Module):
 
     def forward(self, x):
         return x.softmax(self.dim)
+
+
+class LogSoftmax(Module):
+    def __init__(self, dim=-1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        return x.log_softmax(self.dim)
 
 
 def layernorm(x, weight, bias, eps=1e-5, dims=1):
