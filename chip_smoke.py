@@ -6,8 +6,10 @@ reuse, and with seed-compressed weights as bench.py builds them; then
 GPT-Neo 1.3B's and 2.7B's geometries, seed-compressed; private greedy
 generation with a causal GPT-2, eagerly and captured whole as one CUDA
 graph; BertLarge at full width; the repo's bert-tiny-qnli checkpoint
-classifying 8 rows privately; then the three compressed forwards captured
-as CUDA graphs by ``compile_parties``.
+classifying 8 rows privately; bench.py's offline/online split
+(``compile_parties_cached``) over the compressed GPT-2 and the standalone
+dealer; then the three compressed forwards captured as CUDA graphs by
+``compile_parties``.
 
     python3 chip_smoke.py
 
@@ -124,8 +126,32 @@ without the final line):
               the logits' relative L2 error against the float64 classifier
               under its pre-declared bound, the argmax agreement, block 1
               left out above the bound; latency, rounds, bytes
+  10. cached  bench.py's BENCH_CACHE=1 run on phase 4c's model and tokens:
+              compile_parties_cached(forward, 2, 99, params, x) records the
+              tuple requests in one eager forward; the fill is captured at
+              seed 97 and replayed, then run eagerly at its keys and
+              counter (bit-identical tuples; its launch signatures recorded
+              for phase 5); the online is captured with that cache at seed
+              101 and replayed at 101-106, then run eagerly, served from
+              the same cache at its keys and counter (bit-identical shares;
+              its signatures recorded); a timed fill at seed 98 into the
+              same buffers (offline_fill_sec) and the online with it (the
+              old cache refused, no capture anew, different shares). Holds:
+              the online's rounds and bytes equal phase 4c's; the fill's
+              launches are its provider calls' (philox, and ring_mm's dealer
+              products), the online makes neither and launches the rest as
+              phase 4c; the hidden state with either cache within phase
+              4c's bound. Logs the cache's bytes, the fill's time eager and
+              captured, the online replay beside phase 6's compile_parties
+              replay (after phase 6), the device busy share of one online
+              replay, and the graphs' memory
+  10b. dealer the standalone dealer: a mul and a gelu at (4,) recorded, the
+              dealer's command line (python -m
+              curl_tpu_torch.mpc.provider.dealer) run on the card in a
+              process of its own, each party's file loaded, the same ops
+              served within 0.02 and 0.05, the cursor at the cache's end
   5. path     every launch signature (shapes, strides, op) that any of the
-              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8 and 9 passed to ring_mm, philox,
+              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9 and 10 passed to ring_mm, philox,
               fused_mul, ltz, max_step and seed_expand (expand and open), on
               fresh operands of the same layout: bit for bit against plain,
               timed with the L2 cache flushed before each call, and summed
@@ -154,8 +180,9 @@ without the final line):
 It prints one JSON line with every kernel's numbers (launches, time,
 plain time and bound of one phase 4c forward, the main path of the slices
 that ported the kernels, or for the 3-pair ring_mm_acc entry of phase 7's
-generation; under ``paths`` the same for each phase's run, and under
-``captured`` the launches of each phase 6 and phase 7 capture), then the
+generation; under ``paths`` the same for each phase's run, phase 10's fill
+and online as "cached fill" and "cached online", and under ``captured`` the
+launches of each phase 6, 7 and 10 capture), then the
 card's name and power limit, then ``{"ok": true, "device": {...}}`` as the
 last line.
 """
@@ -2576,9 +2603,38 @@ def run_qnli(dev, root):
 # Phase 6: the forward captured as a CUDA graph (compile_parties)
 # ---------------------------------------------------------------------------
 
+def hidden_forward(model):
+    """``(forward, params)``: ``model.functional()``'s forward returning
+    the output and the final-LayerNorm hidden state (the output of the last
+    call of ``model.ln``)."""
+    apply_fn, params = model.functional()
+
+    def forward(p, x):
+        seen = []
+        hook = model.ln.register_forward_hook(lambda mod, inp, out: seen.append(out))
+        try:
+            probs = apply_fn(p, x)
+        finally:
+            hook.remove()
+        return probs, seen[-1]
+
+    return forward, params
+
+
+def hidden_of(out):
+    """The final-LayerNorm hidden state of ``hidden_forward``'s output, revealed."""
+    probs, hidden = out
+    return hidden.get_plain_text().reshape(tuple(probs.shape[:-1]) + (-1,))
+
+
+def same(a, b):
+    """Whether two outputs' shares are bit-identical, item by item."""
+    return all(torch.equal(u.share, v.share) for u, v in zip(a, b))
+
+
 # what phase 6 keeps of a phase 4c, 4d or 4f run, and each path's phase
 PHASE_OF = {"compressed": "4c", "neo": "4d", "neo_large": "4f"}
-CAPTURE_KEYS = ("model", "xe", "ref", "config", "bound", "stats", "best_s")
+CAPTURE_KEYS = ("model", "xe", "ref", "config", "bound", "stats", "best_s", "launches", "by_op")
 # the capture's seed, then the replays' (each a fresh seed)
 CAPTURE_SEED = 101
 REPLAYS = 6
@@ -2600,20 +2656,7 @@ def run_captured(path, res):
 
     tag = f"captured {path}"
     model, xe = res["model"], res["xe"]
-    apply_fn, params = model.functional()
-
-    def forward(p, x):
-        seen = []
-        hook = model.ln.register_forward_hook(lambda mod, inp, out: seen.append(out))
-        try:
-            probs = apply_fn(p, x)
-        finally:
-            hook.remove()
-        return probs, seen[-1]
-
-    def hidden_of(out):
-        probs, hidden = out
-        return hidden.get_plain_text().reshape(tuple(probs.shape[:-1]) + (-1,))
+    forward, params = hidden_forward(model)
 
     def eager_at(seed):
         """The forward eagerly under ``seed``'s keys from the capture's
@@ -2628,9 +2671,6 @@ def run_captured(path, res):
             secs = time.perf_counter() - t0
         crandom.set_counter(resume)
         return out, secs
-
-    def same(a, b):
-        return all(torch.equal(u.share, v.share) for u, v in zip(a, b))
 
     def elsewhere(x):
         """The same tokens at another address."""
@@ -2726,6 +2766,286 @@ def run_captured(path, res):
               for name, is_tag in CHAIN_TAGS.items()}
     return dict(launches=launches, chains=chains, best_s=best, eager_s=eager_s, busy_ms=busy,
                 capture_s=step.capture_s, peak=peak), failures
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the offline/online split (compile_parties_cached) and the dealer
+# ---------------------------------------------------------------------------
+
+# bench.py's BENCH_CACHE=1 seeds (bench.py:236-275): the recording, the
+# warm-up fill and the timed fill; the online replays take CAPTURE_SEED on
+CACHE_RECORD_SEED = 99
+FILL_SEEDS = (97, 98)
+FILL_REPLAYS = 3
+# philox launches of one call of each TFP provider method (tfp_provider.py:
+# each method's docstring), and the one ring_mm launch of a matmul triple's
+# dealer product
+PROVIDER_LAUNCHES = {"generate_additive_triple": 2, "square": 2, "generate_binary_triple": 2,
+                     "wrap_rng": 1, "B2A_rng": 1, "generate_lut_masks": 2,
+                     "egk_trunc_pr_rng": 1}
+CACHED_PATHS = ("cached fill", "cached online")
+
+
+def _leaves(entries):
+    from curl_tpu_torch.mpc.provider.provider import describe
+
+    return describe(entries)[1]
+
+
+def run_cached(res):
+    """Phase 10: bench.py's BENCH_CACHE=1 run (bench.py:236-275) on phase
+    4c's model and tokens: ``compile_parties_cached(forward, 2, 99, params,
+    x)``; the fill captured at seed 97 (counts reset just before and read
+    just after), replayed, then run eagerly at its keys and counter,
+    recording its launch signatures for phase 5; the online captured with
+    that cache at seed 101 (counts reset just before and read just after)
+    and replayed at seeds 101-106, then run eagerly, served from the same
+    cache at its keys and counter, recording its signatures; a timed fill
+    at seed 98 into the same buffers and the online once more with it.
+    Returns (the fill's and the online's paths and captures, best times),
+    failures."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch import random as crandom
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.mpc import get_default_provider
+    from curl_tpu_torch.mpc.provider.provider import TupleCache
+
+    tag = "cached"
+    model, xe = res["model"], res["xe"]
+    forward, params = hidden_forward(model)
+    provider = get_default_provider()
+
+    def at_counter(seed, counter, fn):
+        """``fn()`` eagerly under ``seed``'s keys from draw counter
+        ``counter``, recording its launches: (output, calls, host s)."""
+        resume = crandom.counter()
+        crandom.set_counter(counter)
+        try:
+            with ct.parallel.mpc_context(crandom.make_party_keys(seed, 2), 2), \
+                    recording_launches() as calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+        finally:
+            crandom.set_counter(resume)
+        return out, calls, secs
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with cfg.temp_override(res["config"]):
+        (online, fill), record_s = timed(lambda: ct.compile_parties_cached(
+            forward, 2, CACHE_RECORD_SEED, params, xe))
+        funcs = {f: fill.funcs.count(f) for f in sorted(set(fill.funcs))}
+        want_fill = {"philox": sum(PROVIDER_LAUNCHES[f] for f in fill.funcs),
+                     "ring_mm": sum(1 for r in fill.requests
+                                    if r.func == "generate_additive_triple" and r.args[2] == "matmul")}
+
+        # the fill: its capture, counted alone, then replays
+        reset_launches()
+        ct.reset_communication_stats()
+        torch.cuda.synchronize()
+        held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        cache, fill_first_s = timed(lambda: fill(FILL_SEEDS[0]))
+        fill_launches, fill_by_op, _ = read_launches()
+        fill_stats = ct.get_communication_stats()
+        fill_bytes = torch.cuda.memory_allocated() - held
+        fill_pool = torch.cuda.memory_reserved() - reserved
+        cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache.entries))
+        bytes_by = {f: sum(t.numel() * t.element_size() for e, g in zip(cache.entries, fill.funcs)
+                           if g == f for t in _leaves([e])) for f in funcs}
+        fill_lat = []
+        for _ in range(FILL_REPLAYS):
+            cache, secs = timed(lambda: fill(FILL_SEEDS[0]))
+            fill_lat.append(secs)
+        # the same fill eagerly at its keys and counter: its signatures
+        reset_launches()
+        with provider.serving(None):
+            eager_entries, fill_calls, fill_eager_s = at_counter(
+                FILL_SEEDS[0], fill.program.counter,
+                lambda: provider.fill_cache_entries(fill.requests))
+        eager_fill_launches, eager_fill_by_op, _ = read_launches()
+        fill_same = all(torch.equal(a, b) for a, b in zip(_leaves(cache.entries),
+                                                          _leaves(eager_entries)))
+        del eager_entries
+        gc.collect()
+
+        # the online: its capture with the cache of seed 97, counted alone
+        reset_launches()
+        ct.reset_communication_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        first, online_first_s = timed(lambda: online(CAPTURE_SEED, cache, params, xe))
+        launches, by_op, _ = read_launches()
+        stats = ct.get_communication_stats()
+        online_bytes = torch.cuda.memory_allocated() - held
+        online_pool = torch.cuda.memory_reserved() - reserved
+        lat = []
+        for i in range(REPLAYS):
+            _, secs = timed(lambda: online(CAPTURE_SEED + i, cache, params, xe))
+            lat.append(secs)
+        again = online(CAPTURE_SEED, cache, params, xe)
+        after = ct.get_communication_stats()
+        peak = torch.cuda.max_memory_allocated() - held
+        best = min(lat)
+        busy = profile_forward(None, None, best, tag=f"profile, {tag} online", top=6,
+                               call=lambda: online(CAPTURE_SEED + REPLAYS, cache, params, xe))
+        # the same forward eagerly, served from the same cache at the
+        # online's keys and counter, counted alone
+        reset_launches()
+        ct.reset_communication_stats()
+        view = TupleCache(cache.entries)
+        with provider.serving(view):
+            eager, online_calls, online_eager_s = at_counter(
+                CAPTURE_SEED, online.counter, lambda: forward(params, xe))
+        eager_launches, eager_by_op, _ = read_launches()
+        eager_stats = ct.get_communication_stats()
+
+        # a timed fill at seed 98 into the same buffers (bench.py's
+        # offline_fill_sec), and the online with it
+        captures = online.captures
+        cache98, offline_fill_s = timed(lambda: fill(FILL_SEEDS[1]))
+        try:
+            online(CAPTURE_SEED, cache, params, xe)
+            stale_refused = False
+        except RuntimeError:
+            stale_refused = True
+        second = online(CAPTURE_SEED, cache98, params, xe)
+
+    want_online = dict(res["launches"], ring_mm=0,
+                       philox=res["launches"]["philox"] - want_fill["philox"])
+    log(f"[{tag}] recorded {len(fill.requests)} tuple requests in {record_s:.2f} s (one eager "
+        f"forward at seed {CACHE_RECORD_SEED}): {funcs}")
+    log(f"[{tag}] the cache: {len(cache.entries)} entries, {len(_leaves(cache.entries))} tensors, "
+        f"{cache_bytes} bytes ({cache_bytes / 2**30:.3f} GiB), by method {bytes_by}; the fill "
+        f"graph allocates {fill_bytes / 2**30:.3f} GiB, reserves {fill_pool / 2**30:.3f} GiB more")
+    log(f"[{tag}] fill: first call {fill_first_s:.3f} s (warm-up fill {fill.program.warmup_s:.3f} "
+        f"s, capture and instantiation {fill.program.capture_s:.3f} s, one replay); eager fill "
+        f"{fill_eager_s:.4f} s; captured fill replays {', '.join(f'{x:.4f}' for x in fill_lat)} s; "
+        f"the timed fill at seed {FILL_SEEDS[1]} (offline_fill_sec) {offline_fill_s:.4f} s")
+    log(f"[{tag}] fill launches {fill_launches} (the provider calls': philox {want_fill['philox']}, "
+        f"ring_mm {want_fill['ring_mm']}); {fill_stats['rounds']} rounds")
+    log(f"[{tag}] online: first call {online_first_s:.2f} s (warm-up {online.warmup_s:.2f} s, "
+        f"capture and instantiation {online.capture_s:.2f} s, one replay); replay latencies "
+        f"{', '.join(f'{x:.4f}' for x in lat)} s: best {best:.4f} s, {SEQ / best:.1f} tokens/s; "
+        f"the eager served forward {online_eager_s:.4f} s; phase 4c's eager best "
+        f"{res['best_s']:.4f} s")
+    log(f"[{tag}] online: {stats['rounds']} rounds, {stats['bytes']} bytes (phase 4c "
+        f"{res['stats']['rounds']}, {res['stats']['bytes']}); launches {launches}; by op {by_op}")
+    log(f"[{tag}] online device memory: the graph allocates {online_bytes / 2**30:.3f} GiB, "
+        f"reserves {online_pool / 2**30:.3f} GiB more; peak {peak / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before it; captures: online {online.captures}, fill "
+        f"{fill.program.captures}")
+    checks = {
+        f"the online's rounds and bytes equal phase 4c's uncached forward's "
+        f"({res['stats']['rounds']}, {res['stats']['bytes']}), replays count none":
+            (stats["rounds"], stats["bytes"]) == (res["stats"]["rounds"], res["stats"]["bytes"])
+            == (eager_stats["rounds"], eager_stats["bytes"]) and after == stats,
+        "the fill communicates nothing at 2 parties": fill_stats["rounds"] == 0,
+        "the fill's launches equal its provider calls' (philox, ring_mm) and the eager fill's":
+            {k: fill_launches[k] for k in want_fill} == want_fill
+            and fill_launches == eager_fill_launches and fill_by_op == eager_fill_by_op == {}
+            and want_fill["ring_mm"] == res["launches"]["ring_mm"],
+        "the online makes no dealer product and no provider philox launch; its other launches "
+        "equal phase 4c's": (launches, by_op) == (want_online, res["by_op"]),
+        "the online capture's launches equal the eager served forward's, as recorded":
+            (launches, by_op) == (eager_launches, eager_by_op)
+            == recorded_launches(online_calls),
+        "the fill's recorded launches equal its counted ones":
+            recorded_launches(fill_calls) == (eager_fill_launches, eager_fill_by_op),
+        "the fill graph's tuples bit-identical to the eager fill's at its keys and counter":
+            fill_same,
+        "the online replay bit-identical to the eager served forward at its keys and counter":
+            same(first, eager) and view.cursor == len(cache.entries),
+        "the same seed and cache twice bit-identical": same(first, again),
+        "the caches of seeds 97 and 98 different shares": not torch.equal(first[0].share,
+                                                                          second[0].share),
+        "a cache that a later fill overwrote is refused": stale_refused and cache.overwritten,
+        "one capture each: a new fill into the same buffers captures nothing anew":
+            online.captures == captures == 1 and fill.program.captures == 1,
+    }
+    for seed, out in ((FILL_SEEDS[0], first), (FILL_SEEDS[1], second)):
+        st = hidden_stats(hidden_of(out), res["ref"])
+        log(f"[{tag}] final-LN hidden with the cache of seed {seed}: {fmt_stats(st)}")
+        checks[f"hidden state with the cache of seed {seed} within max {HIDDEN_STATE_ATOL}, "
+               f"scale-free rel L2 {res['bound']}"] = (np.isfinite(hidden_of(out)).all()
+                                                       and st["max_abs"] <= HIDDEN_STATE_ATOL
+                                                       and st["scale_free_l2"] <= res["bound"])
+    for name, ok in checks.items():
+        log(f"[{tag}] {name}: {'held' if ok else 'FAILED'}")
+    failures = [f"{tag}: {name}" for name, ok in checks.items() if not ok]
+    out = dict(paths={"cached fill": (fill_calls, eager_fill_launches, eager_fill_by_op),
+                      "cached online": (online_calls, eager_launches, eager_by_op)},
+               captured={"cached fill": dict(launches=fill_launches, chains={}),
+                         "cached online": dict(launches=launches, chains={
+                             name: sum(n for t, n in by_op.items() if is_tag(t))
+                             for name, is_tag in CHAIN_TAGS.items()})},
+               best_s=best, fill_best_s=min(fill_lat), offline_fill_s=offline_fill_s,
+               busy_ms=busy)
+    del online, fill, cache, cache98, first, again, second, eager, view
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, failures
+
+
+def run_dealer():
+    """Phase 10b: the standalone dealer on the card, with the case of
+    tests/test_providers.py:178-240: a mul and a gelu at (4,) recorded, the
+    dealer's command line run in a process of its own, each party's file
+    loaded, the same ops served from them."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.mpc import get_default_provider
+    from curl_tpu_torch.mpc.provider import dealer
+
+    tag = "dealer"
+    ct.init(world_size=2, seed=SEED)
+    provider = get_default_provider()
+    g = np.random.default_rng(2024)
+    x, y = g.normal(size=(4,)), g.normal(size=(4,))
+    provider.requests = []
+    ct.trace(True)
+    (ct.cryptensor(x) * ct.cryptensor(y)).get_plain_text()
+    ct.cryptensor(x).gelu().get_plain_text()
+    ct.trace(False)
+    out_dir = os.path.join(ROOT, "build", "dealer")
+    os.makedirs(out_dir, exist_ok=True)
+    requests, prefix = os.path.join(out_dir, "requests.json"), os.path.join(out_dir, "tuples")
+    provider.save_requests(requests)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "curl_tpu_torch.mpc.provider.dealer",
+                           "--requests", requests, "--world-size", "2", "--seed", "1234",
+                           "--out", prefix], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(f"[{tag}] the dealer's command line failed: {proc.stderr[-2000:]}")
+        return [f"{tag}: the dealer's command line exited {proc.returncode}"]
+    try:
+        cache = dealer.attach_party_caches([f"{prefix}.party{r}.npz" for r in (1, 0)])
+        got_mul = (ct.cryptensor(x) * ct.cryptensor(y)).get_plain_text()
+        got_gelu = ct.cryptensor(x).gelu().get_plain_text()
+        served = (cache.cursor, len(cache.entries))
+    finally:
+        provider.attach_cache(None)
+        provider.requests = []
+    ref_gelu = x * (1 + np.vectorize(math.erf)(x / math.sqrt(2))) / 2
+    err_mul, err_gelu = np.abs(got_mul - x * y).max(), np.abs(got_gelu - ref_gelu).max()
+    log(f"[{tag}] {served[1]} requests filled by the dealer's command "
+        f"line on the card in a process of its own in {secs:.1f} s; served {served[0]} of "
+        f"{served[1]} entries; mul max |err| {err_mul:.5f} (0.02), gelu {err_gelu:.5f} (0.05)")
+    checks = {"mul within 0.02 and gelu within 0.05 of float64": err_mul <= 0.02
+              and err_gelu <= 0.05,
+              "the cursor ends at the cache's length": served[0] == served[1]}
+    for name, ok in checks.items():
+        log(f"[{tag}] {name}: {'held' if ok else 'FAILED'}")
+    return [f"{tag}: {name}" for name, ok in checks.items() if not ok]
 
 
 # ---------------------------------------------------------------------------
@@ -3280,6 +3600,12 @@ def philox_size_classes(path, mine):
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
+
+
+def phase_done(name):
+    """A ``[time]`` line: the host seconds since the run started."""
+    log(f"[time] {name} done at {time.perf_counter() - START:.1f} s")
 
 
 def main():
@@ -3323,6 +3649,7 @@ def main():
     check_fused(dev, gen)
     check_seed(dev, gen)
     check_open(dev, gen)
+    phase_done("phases 1-3c")
 
     kernels, failures = run_paths(dev, gen)
     if failures:
@@ -3344,6 +3671,7 @@ def run_paths(dev, gen):
     functions, failures = run_functions()
     paths = {"functions": (functions["calls"], functions["launches"], functions["by_op"])}
     del functions
+    phase_done("phase 3d")
     forward, fw_failures = run_forward(dev)
     failures += fw_failures
     paths["forward"] = (forward.pop("calls"), forward.pop("launches"), forward.pop("by_op"))
@@ -3361,6 +3689,7 @@ def run_paths(dev, gen):
     compressed = {k: compressed[k] for k in CAPTURE_KEYS}  # phase 6's
     del forward
     torch.cuda.empty_cache()
+    phase_done("phases 4, 4b, 4e, 4c")
     neo, neo_failures = run_neo(dev, gen)
     failures += neo_failures
     paths["neo"] = (neo["calls"], neo["launches"], neo["by_op"])
@@ -3368,21 +3697,31 @@ def run_paths(dev, gen):
                                      bound=NEO_LARGE_SCALE_FREE_L2, rounds=NEO_LARGE_ROUNDS)
     failures += nl_failures
     paths["neo_large"] = (neo_large["calls"], neo_large["launches"], neo_large["by_op"])
+    phase_done("phases 4d, 4f")
     # phases 7, 8 and 9 before phase 5, which holds their launch signatures too
     generated, gen_failures = run_generate(sd)
     failures += gen_failures
     paths[GENERATE_PATH] = (generated["calls"], generated["launches"], generated["by_op"])
     del sd
+    phase_done("phase 7")
     for name, run in (("bert", lambda: run_bert(dev)), ("qnli", lambda: run_qnli(dev, ROOT))):
         res, more = run()
         failures += more
         paths[name] = (res["calls"], res["launches"], res["by_op"])
         del res
+    phase_done("phases 8, 9")
+    # phase 10: the offline/online split on phase 4c's model and tokens, and
+    # the dealer; before phase 5, which holds their launch signatures too
+    cached, cached_failures = run_cached(compressed)
+    failures += cached_failures + run_dealer()
+    paths.update(cached.pop("paths"))
+    phase_done("phase 10")
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
     rows = time_signatures({p: c for p, (c, _, _) in paths.items()}, dev, gen)
     totals = {p: path_totals(p, c, rows) for p, (c, _, _) in paths.items()}
+    phase_done("phase 5")
     for p, t in totals.items():
         log(f"[path] {p} ring_mm and ring_mm_acc against their bounds: " + ", ".join(
             f"{name} {t[name]['ms']:.3f} ms = {t[name]['ms'] / t[name]['bound_ms']:.2f}x "
@@ -3396,7 +3735,7 @@ def run_paths(dev, gen):
     # phase 6: the compressed GPT-2, GPT-Neo and GPT-Neo 2.7B forwards
     # through compile_parties, captured once and replayed; each model freed
     # after
-    captured = {GENERATE_PATH: generated["captured"]}
+    captured = {GENERATE_PATH: generated["captured"], **cached.pop("captured")}
     del generated
     for p, res in (("compressed", compressed), ("neo", neo), ("neo_large", neo_large)):
         captured[p], cap_failures = run_captured(p, res)
@@ -3404,6 +3743,14 @@ def run_paths(dev, gen):
         res.clear()
         torch.cuda.empty_cache()
     del compressed, neo, neo_large
+    phase_done("phase 6")
+    smi = nvidia_smi_line()
+    log(f"[cached] the online replay {cached['best_s']:.4f} s (best of {REPLAYS}) beside phase "
+        f"6's compile_parties replay of the same model and tokens {captured['compressed']['best_s']:.4f} "
+        f"s; the captured fill {cached['fill_best_s']:.4f} s (best of {FILL_REPLAYS}), "
+        f"offline_fill_sec {cached['offline_fill_s']:.4f} s; device busy in one online replay "
+        + (f"{cached['busy_ms']:.1f} ms, {cached['busy_ms'] / (cached['best_s'] * 1e3):.1%}"
+           if cached["busy_ms"] is not None else "not measured") + f" ({smi})")
 
     def counted(p, name):
         """The launches one forward of path p counted for a JSON entry."""

@@ -19,6 +19,14 @@ PyTorch and hand-written CUDA kernels for one NVIDIA Hopper card:
     step = ct.compile_parties(apply_fn, 2)   # a captured CUDA graph
     out = step(seed, params, xe)              # fresh randomness per seed
 
+    online, fill = ct.compile_parties_cached(apply_fn, 2, 99, params, xe)
+    cache = fill(97)                          # the offline phase: every tuple
+    out = online(101, cache, params, xe)      # the online phase, served
+
+Eager ops serve from a host cache too: ``trace(True)`` records the tuple
+requests of the ops that follow, ``fill_cache()`` generates them, and the
+same ops run again pop its entries in order.
+
 The package imports no JAX and nothing of ``curl_tpu``.
 """
 
@@ -37,7 +45,7 @@ from . import nn  # noqa: F401
 from . import models  # noqa: F401
 from .nn import module as _nn_module
 from . import parallel  # noqa: F401
-from .parallel import Public, compile_parties, run_parties  # noqa: F401
+from .parallel import Public, compile_parties, compile_parties_cached, run_parties  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -77,3 +85,30 @@ def get_communication_stats():
 
 def reset_communication_stats():
     comm.reset_communication_stats()
+
+
+# tuple-cache controls (curl/__init__.py:582-591; curl_tpu/__init__.py:591-615)
+
+def trace(tracing: bool = True):
+    """Record the tuple request of every provider call from now on."""
+    get_default_provider().trace(tracing)
+
+
+def trace_once():
+    """Record only if nothing has been recorded yet."""
+    get_default_provider().trace_once()
+
+
+def fill_cache(seed=0):
+    """The offline phase for eager ops: every recorded request generated
+    under the session's keys from the session's draw counter, attached as
+    the host cache, from which the eager ops that follow pop their tuples
+    in order. ``seed`` is not read: curl_tpu's fill draws under its
+    session's fresh keys too."""
+    from .mpc.provider.provider import TupleCache
+
+    provider = get_default_provider()
+    _rng.current_keys()  # raises before init
+    cache = TupleCache(provider.fill_cache_entries(), funcs=[r.func for r in provider.requests])
+    provider.attach_cache(cache)
+    return cache

@@ -369,7 +369,11 @@ def reset_launches():
 def fused_available(x, y=None, key: str = "fused_mul") -> bool:
     """2 parties, the TFP dealer, the Beaver protocol, passive security and
     at least MIN_ELEMENTS elements after broadcasting; ``key`` selects the
-    knob (mpc.fused_mul for mul/square, mpc.fused_trunc for trunc)."""
+    knob (mpc.fused_mul for mul/square, mpc.fused_trunc for trunc). Not
+    gated on the tuple cache (pallas_mul.py:319-327): the pass draws in the
+    kernel from the ``fused`` key and asks the provider for nothing, so it
+    engages alike in the run that records the requests and the run served
+    them."""
     from .. import comm
     from ..config import cfg
     from ..mpc import get_default_provider

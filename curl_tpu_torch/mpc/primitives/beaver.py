@@ -152,9 +152,13 @@ def mask_operand(y: ArithmeticSharedTensor):
     """``y`` Beaver-masked for reuse (beaver.py:176-193): b drawn by the
     dealer and shared in one launch, then delta = y - b revealed (one
     round of y's size). Declined, ``y`` returned as it is, where the JAX
-    package declines: a dealer other than TFP, or active security. (It
-    also declines under its tuple cache, which the port does not have.)"""
-    if getattr(_provider(), "NAME", None) != "TFP" or cfg.mpc.active_security:
+    package declines: a dealer other than TFP, active security, and the
+    tuple-cache flows, recording and serving alike (the positional tuple
+    stream has no mask of its own, and the gate must agree between the run
+    that records the requests and the run that is served them)."""
+    provider = _provider()
+    if (getattr(provider, "NAME", None) != "TFP" or provider.tracing
+            or provider.current_cache() is not None or cfg.mpc.active_security):
         return y
     shape = y.shape
     draw_b, share_b = rng.reserve_counts(2)

@@ -1,7 +1,10 @@
-"""Party runtimes (counterpart of ``curl_tpu/parallel``): ``run_parties``
-and ``compile_parties``, the private forward captured as a CUDA graph."""
+"""Party runtimes (counterpart of ``curl_tpu/parallel``): ``run_parties``,
+``compile_parties``, the private forward captured as a CUDA graph, and
+``compile_parties_cached``, its offline/online split."""
 
 from .runner import (  # noqa: F401
+    CachedFill,
+    CachedOnline,
     CompiledParties,
     Public,
     compile_parties,

@@ -18,7 +18,12 @@ captured CUDA graph:
     (``random.TABLE``), which the kernels read on the device, replays the
     graph, restores the session's keys and returns clones of the output
     shares. A session started with ``device="cpu"`` runs ``fn`` eagerly
-    under the call's keys instead, from the same draw counter each time.
+    under the call's keys instead, from the same draw counter each time;
+  * ``compile_parties_cached(fn, world_size, seed, *args)`` returns
+    ``(online, fill)``, the offline/online split: ``fill(seed)`` generates
+    every tuple request a recording run of ``fn`` made, and
+    ``online(seed, cache, *args)`` runs ``fn`` served from that cache, each
+    a ``CompiledParties`` program.
 
 Arguments are pytrees (dicts, lists, tuples) of MPCTensors, share tensors,
 torch tensors and Python values; ``Public(x)`` marks a public value (passed
@@ -58,6 +63,7 @@ from ..mpc.mpc import MPCTensor
 from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
 from ..mpc.primitives.binary import BinarySharedTensor
 from ..mpc.primitives.compressed import SeedCompressedArithmetic
+from ..mpc.provider.provider import TupleCache
 
 # the kernels whose launches a capture counts, by the JSON line's family
 _KERNELS = {"ring_mm": ring_mm, "philox": philox, "fused_mul": fused_mul,
@@ -89,6 +95,12 @@ def mpc_context(keys, world_size: int, runtime: str = "vmap"):
         comm.set_world_size(old_ws)
         if old_keys is not None:
             rng.set_keys(old_keys)
+
+
+def _provider():
+    from ..mpc import get_default_provider
+
+    return get_default_provider()
 
 
 def _party_keys(seed, world_size: int) -> dict:
@@ -215,7 +227,7 @@ def run_parties(fn, world_size: int, seed, *args, jit: bool = False):
     session's draw counter, as the JAX package's trace counter does."""
     if jit:
         return compile_parties(fn, world_size)(seed, *args)
-    with mpc_context(_party_keys(seed, world_size), world_size):
+    with mpc_context(_party_keys(seed, world_size), world_size), _provider().serving(None):
         return fn(*_unwrap(args))
 
 
@@ -250,19 +262,29 @@ class CompiledParties:
     counted by the latest one, ``counter`` its first draw counter,
     ``constants`` the public constants its graph reads, and ``warmup_s``
     and ``capture_s`` the host seconds of its warm-up forward and of the
-    capture with the graph's instantiation (None on the CPU)."""
+    capture with the graph's instantiation (None on the CPU). Each call's
+    outputs are copies of the graph's (``copy_out=False``: the graph's own
+    tensors, which the next replay rewrites).
 
-    def __init__(self, fn, world_size: int):
+    ``fn`` runs with no tuple cache bound (``provider.serving(None)``): its
+    provider calls generate their tuples inline, even where eager ops are
+    served from a host cache."""
+
+    def __init__(self, fn, world_size: int, copy_out: bool = True):
         self.fn = fn
         self.world_size = world_size
+        self.copy_out = copy_out
         self.captures = 0
         self.stats = self.counter = self.constants = self.warmup_s = self.capture_s = None
         self._entries = {}
 
     def __call__(self, seed, *args):
-        keys = _party_keys(seed, self.world_size)
         leaves = []
         spec = _flatten(tuple(args), leaves)
+        return self._call(seed, spec, leaves, args)
+
+    def _call(self, seed, spec, leaves, args):
+        keys = _party_keys(seed, self.world_size)
         device = comm.get_device()
         key = (str(device), spec)
         entry = self._entries.get(key)
@@ -293,14 +315,14 @@ class CompiledParties:
         if entry is None:
             entry = _Capture(rng.counter())
             before = _counts()
-            with mpc_context(keys, self.world_size):
+            with mpc_context(keys, self.world_size), _provider().serving(None):
                 out = self.fn(*_unwrap(args))
             self._record(key, entry, before)
             return out
         resume = rng.counter()
         rng.set_counter(entry.counter)
         try:
-            with _uncounted(), mpc_context(keys, self.world_size):
+            with _uncounted(), mpc_context(keys, self.world_size), _provider().serving(None):
                 return self.fn(*_unwrap(args))
         finally:
             rng.set_counter(resume)
@@ -315,7 +337,8 @@ class CompiledParties:
         rng.set_counter(counter)
         args = _build(spec, _stage(entry, leaves, staged, device), public=True)
         graph = torch.cuda.CUDAGraph()
-        with mpc_context(keys, self.world_size), ring.holding_constants(entry.held):
+        with mpc_context(keys, self.world_size), ring.holding_constants(entry.held), \
+                _provider().serving(None):
             # the warm-up builds the kernels, makes the constants and the
             # table's device copy; it is counted nowhere
             t0 = time.perf_counter()
@@ -344,7 +367,7 @@ class CompiledParties:
             buf.copy_(leaves[i])
         with mpc_context(keys, self.world_size):
             entry.graph.replay()
-        out = [t.clone() for t in entry.out]
+        out = [t.clone() for t in entry.out] if self.copy_out else entry.out
         return _build(entry.out_spec, out)
 
 
@@ -360,9 +383,97 @@ def compile_parties(fn, world_size: int, jit: bool = True):
     return CompiledParties(fn, world_size)
 
 
+class CachedOnline(CompiledParties):
+    """The online program of ``compile_parties_cached``: ``(seed, cache,
+    *args) -> outputs``, ``fn`` served from ``cache`` in order. One capture
+    reads the cache's tensors in place at their capture address, as a
+    model's parameters are read; each run (the warm-up, the capture, and
+    an eager call on a CPU session) takes a view of the entries from entry
+    0. A serving run never generates a tuple: a request past the cache's
+    end raises "exhausted", and a run that leaves entries unserved raises
+    too (its requests are not the recorded ones)."""
+
+    def __init__(self, fn, world_size: int):
+        provider = _provider()
+
+        def served(entries, *inner):
+            view = TupleCache(entries)
+            with provider.serving(view):
+                out = fn(*inner)
+            if view.cursor != len(entries):
+                raise RuntimeError(f"the serving run took {view.cursor} of the cache's "
+                                   f"{len(entries)} tuples: its requests are not the recorded ones")
+            return out
+
+        super().__init__(served, world_size)
+
+    def __call__(self, seed, cache: TupleCache, *args):
+        if cache.overwritten:
+            raise RuntimeError("this cache's tensors hold a later fill's tuples")
+        if cache._flat is None:  # flattened once a cache: a fill's many tensors
+            leaves = []
+            cache._flat = (_flatten(cache.entries, leaves), leaves)
+        spec0, leaves = cache._flat[0], list(cache._flat[1])
+        spec = ("tuple", (spec0,) + tuple(_flatten(a, leaves) for a in args))
+        out = self._call(seed, spec, leaves, (cache.entries,) + args)
+        cache.cursor = len(cache.entries)
+        return out
+
+
+class CachedFill:
+    """The offline program of ``compile_parties_cached``: ``fill(seed) ->
+    TupleCache``, every recorded request generated under the keys of
+    ``seed`` (``CompiledParties`` over ``fill_cache_entries``: one CUDA
+    graph on a CUDA session, replayed a call; eager on a CPU session, from
+    the first call's draw counter). On a card every fill writes the same
+    tensors, the graph's own: the cache a fill returns is marked
+    ``overwritten`` by the next one, which the online refuses, and the
+    online graph, reading them in place, needs no capture anew."""
+
+    def __init__(self, requests, world_size: int):
+        provider = _provider()
+        self.requests = requests = list(requests)
+        self.funcs = [r.func for r in requests]
+        # the program holds the requests, not self: no cycle keeps a
+        # dropped fill's graph and tuples alive until a garbage collection
+        self.program = CompiledParties(lambda: provider.fill_cache_entries(requests),
+                                       world_size, copy_out=False)
+        self._issued = None
+
+    def __call__(self, seed) -> TupleCache:
+        entries = self.program(seed)
+        if comm.get_device().type == "cuda" and self._issued is not None:
+            self._issued.overwritten = True
+        self._issued = TupleCache(entries, funcs=self.funcs)
+        return self._issued
+
+
 def compile_parties_cached(fn, world_size: int, seed, *args):
-    """The offline/online split of the JAX package: queue item A12."""
-    raise NotImplementedError("compile_parties_cached is not ported yet (ROADMAP A12)")
+    """The offline/online split (runner.py:146-213; the reference's tuple
+    cache, curl/mpc/provider/provider.py:47-157, as two programs):
+
+      1. ``fn(*args)`` run once at ``seed``, eagerly on the session's
+         device, recording every tuple request (``trace(True)``; counted
+         nowhere), where the JAX package shape-evaluates it;
+      2. ``fill(seed) -> cache``: the recorded requests generated
+         (``CachedFill``), the dealer's phase;
+      3. ``online(seed, cache, *args) -> outputs``: ``fn`` served from the
+         cache (``CachedOnline``); its CommStats are counted at its capture.
+
+    Returns ``(online, fill)``. Each program draws from the counter of its
+    first call (its capture on a card), after the recording's draws: the
+    fill's and the online's draws never share a counter, whatever seeds
+    they are given. Give the two programs distinct seeds all the same, as
+    bench.py does."""
+    provider = _provider()
+    provider.requests = []
+    provider.trace(True)
+    try:
+        with _uncounted():
+            run_parties(fn, world_size, seed, *args)
+    finally:
+        provider.trace(False)
+    return CachedOnline(fn, world_size), CachedFill(provider.requests, world_size)
 
 
 def shard_map_parties(fn, mesh, world_size: int):

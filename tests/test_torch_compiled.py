@@ -180,8 +180,7 @@ def test_mpc_context_binds_and_restores_keys_and_world_size():
 
 
 @pytest.mark.parametrize("name,args,item", [
-    ("compile_parties_cached", (2, 0), "A12"), ("run_parties_spmd", (None, 2, 0), "A15"),
-    ("shard_map_parties", (None, 2), "A15")])
+    ("run_parties_spmd", (None, 2, 0), "A15"), ("shard_map_parties", (None, 2), "A15")])
 def test_unported_runners_name_their_queue_item(name, args, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         getattr(parallel, name)(lambda a: a, *args)
