@@ -8,7 +8,8 @@ generation with a causal GPT-2, eagerly and captured whole as one CUDA
 graph; BertLarge at full width; the repo's bert-tiny-qnli checkpoint
 classifying 8 rows privately; bench.py's offline/online split
 (``compile_parties_cached``) over the compressed GPT-2 and the standalone
-dealer; then the three compressed forwards captured as CUDA graphs by
+dealer; private ResNet-18 (eager and captured) and ResNet-50 inference at
+224 x 224; then the three compressed forwards captured as CUDA graphs by
 ``compile_parties``.
 
     python3 chip_smoke.py
@@ -150,8 +151,26 @@ without the final line):
               curl_tpu_torch.mpc.provider.dealer) run on the card in a
               process of its own, each party's file loaded, the same ops
               served within 0.02 and 0.05, the cursor at the cache's end
+  11. resnet  ResNet-18 and ResNet-50 (examples/mpc_imagenet.py's models)
+              at 3 x 224 x 224, batch 1, 1000 classes, under bench.py's
+              kernel configuration: He-normal weights from a numpy seed,
+              each BatchNorm's running statistics from a float64 forward
+              over the input, encrypted by party 0; every convolution an
+              im2col product through ring_mm (the dealer's) and ring_mm_acc
+              (the Beaver reconstruction), BatchNorm's private gain and the
+              truncations through fused_mul, each ReLU through ltz, the
+              3 x 3 max pool's windows through max_step's butterfly:
+              latency, rounds against the CPU count, bytes, resident
+              shares, peak memory, launches by kernel, the device busy
+              share; the logits against float64 under a bound fixed from
+              CPU runs, top-1 agreement, the least-felt residual block left
+              out above it. ResNet-18 also through compile_parties:
+              capture, replays at fresh seeds, the replay bit-identical to
+              the eager forward at its keys and counter, equal CommStats and
+              launches, the logits of two seeds within the bound. It runs
+              after phase 10, so that phase 5 holds its launch signatures
   5. path     every launch signature (shapes, strides, op) that any of the
-              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9 and 10 passed to ring_mm, philox,
+              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9, 10 and 11 passed to ring_mm, philox,
               fused_mul, ltz, max_step and seed_expand (expand and open), on
               fresh operands of the same layout: bit for bit against plain,
               timed with the L2 cache flushed before each call, and summed
@@ -181,8 +200,9 @@ It prints one JSON line with every kernel's numbers (launches, time,
 plain time and bound of one phase 4c forward, the main path of the slices
 that ported the kernels, or for the 3-pair ring_mm_acc entry of phase 7's
 generation; under ``paths`` the same for each phase's run, phase 10's fill
-and online as "cached fill" and "cached online", and under ``captured`` the
-launches of each phase 6, 7 and 10 capture), then the
+and online as "cached fill" and "cached online", phase 11's as "resnet18"
+and "resnet50", and under ``captured`` the launches of each phase 6, 7, 10
+and 11 capture), then the
 card's name and power limit, then ``{"ok": true, "device": {...}}`` as the
 last line.
 """
@@ -2600,6 +2620,368 @@ def run_qnli(dev, root):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: private ResNet inference at 224 x 224 (ResNet-18 and ResNet-50)
+# ---------------------------------------------------------------------------
+
+# examples/mpc_imagenet.py's models at their true ImageNet size: batch 1,
+# 3 x 224 x 224, numpy seed 0 normal x 0.5, 1000 classes; He-normal weights
+# from numpy seed 1234, each BatchNorm's running statistics from a float64
+# forward over that input
+RESNET_SIZE = 224
+RESNET_CLASSES = 1000
+RESNET_WEIGHT_SEED = 1234
+# (model, captured by compile_parties)
+RESNETS = (("resnet18", True), ("resnet50", False))
+# The bound on the logits' relative L2 error against float64, and each
+# model's rounds, fixed before the first run of the phase from CPU runs of
+# the port at full width and depth on reduced inputs
+# (scripts/torch_resnet_bound.py, PERF.md §6): at 192 x 192 ResNet-18 read
+# 0.0026 and ResNet-50 0.0184, at 128 x 128 0.0031 (session seeds 11, 1 and
+# 2 alike) and 0.0364; the least-felt block left out read 0.30 and 0.20 at
+# 192. Smaller inputs read worse: a BatchNorm whose statistics come from a
+# few positions (2 x 2 in layer4 at 64 x 64) scales the protocol's noise up
+# by 1 / sqrt(var). The rounds do not depend on the input size.
+RESNET_LOGITS_REL_L2 = 0.06
+RESNET_ROUNDS = {"resnet18": 285, "resnet50": 706}
+# kernels a ResNet forward does not launch: no compressed weight, no masked
+# operand (ring_mm_acc's 3 pairs), no exp (the square chain) and windows of
+# 16 lanes (no fold)
+RESNET_UNLAUNCHED = ("seed_expand", "open", "ring_mm_acc 3 pairs", "fused_mul square chain",
+                     "max_step fold")
+
+
+def resnet_input(size=RESNET_SIZE):
+    """examples/mpc_imagenet.py's input (its line 29): (1, 3, size, size)."""
+    return np.random.default_rng(0).normal(size=(1, 3, size, size)) * 0.5
+
+
+def resnet_state(model, x, dev, seed=RESNET_WEIGHT_SEED):
+    """A numpy state dict for ``model`` (the port's or curl_tpu's ResNet,
+    torchvision's keys): conv and fc weights He-normal (std sqrt(2 /
+    fan_in)), BatchNorm weights 1 + 0.1 N(0, 1), biases 0.1 N(0, 1), drawn
+    in the port's key order from numpy ``seed``; then each BatchNorm's
+    running mean and (biased) variance from a float64 forward over ``x``
+    that normalizes by its batch statistics."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if key.endswith(("running_mean", "running_var")):
+            continue
+        if len(shape) > 1:
+            sd[key] = rng.standard_normal(shape) * math.sqrt(2.0 / math.prod(shape[1:]))
+        elif key.endswith("weight"):
+            sd[key] = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            sd[key] = 0.1 * rng.standard_normal(shape)
+    plain_resnet_forward(sd, x, dev, calibrate=True)
+    return sd
+
+
+def _resnet_blocks(sd):
+    """(layer, block) of every residual block in forward order."""
+    return sorted({(int(k.split(".")[0][5:]), int(k.split(".")[1])) for k in sd
+                   if k.startswith("layer")})
+
+
+def skippable_blocks(sd):
+    """The blocks whose input and output shapes agree (no downsample): the
+    ones a planted fault can leave out."""
+    return [(li, bi) for li, bi in _resnet_blocks(sd)
+            if f"layer{li}.{bi}.downsample.0.weight" not in sd]
+
+
+def plain_resnet_forward(sd, x, dev, skip=None, calibrate=False):
+    """The float64 forward of a ResNet state dict on ``dev`` (logits as a
+    numpy array), block ``skip`` left out; BatchNorm at eval by the running
+    statistics, as the private forward computes it ((x - mean) * (1 /
+    sqrt(var + eps)) * weight + bias), or with ``calibrate`` by the batch's
+    statistics, which it writes into ``sd``."""
+    F = torch.nn.functional
+
+    def t(key):
+        return torch.as_tensor(np.asarray(sd[key]), dtype=torch.float64, device=dev)
+
+    def bn(p, h):
+        if calibrate:
+            sd[p + "running_mean"] = h.mean((0, 2, 3)).cpu().numpy()
+            sd[p + "running_var"] = h.var((0, 2, 3), unbiased=False).cpu().numpy()
+        view = (1, -1, 1, 1)
+        inv = 1.0 / torch.sqrt(t(p + "running_var") + 1e-5)
+        return ((h - t(p + "running_mean").view(view)) * inv.view(view) * t(p + "weight").view(view)
+                + t(p + "bias").view(view))
+
+    h = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    h = F.relu(bn("bn1.", F.conv2d(h, t("conv1.weight"), stride=2, padding=3)))
+    h = F.max_pool2d(h, 3, stride=2, padding=1)
+    for li, bi in _resnet_blocks(sd):
+        if (li, bi) == skip:
+            continue
+        p = f"layer{li}.{bi}."
+        stride = 2 if li > 1 and bi == 0 else 1
+        identity = h
+        if p + "downsample.0.weight" in sd:
+            identity = bn(p + "downsample.1.", F.conv2d(h, t(p + "downsample.0.weight"),
+                                                       stride=stride))
+        if p + "conv3.weight" in sd:  # Bottleneck
+            out = F.relu(bn(p + "bn1.", F.conv2d(h, t(p + "conv1.weight"))))
+            out = F.relu(bn(p + "bn2.", F.conv2d(out, t(p + "conv2.weight"), stride=stride,
+                                                 padding=1)))
+            out = bn(p + "bn3.", F.conv2d(out, t(p + "conv3.weight")))
+        else:
+            out = F.relu(bn(p + "bn1.", F.conv2d(h, t(p + "conv1.weight"), stride=stride,
+                                                 padding=1)))
+            out = bn(p + "bn2.", F.conv2d(out, t(p + "conv2.weight"), padding=1))
+        h = F.relu(out + identity)
+    h = h.mean((2, 3))
+    return (h @ t("fc.weight").T + t("fc.bias")).cpu().numpy()
+
+
+def resnet_private(model, xe, skip=None):
+    """The private logits through the model's own modules in forward
+    order, block ``skip`` (layer, block) left out."""
+    out = model.maxpool(model.bn1(model.conv1(xe)).relu())
+    for li in range(1, 5):
+        for bi, block in enumerate(getattr(model, f"layer{li}")):
+            if (li, bi) != skip:
+                out = block(out)
+    return model.fc(out.adaptive_avg_pool2d((1, 1)).flatten(1))
+
+
+def build_resnet(name, dev, size=RESNET_SIZE):
+    """(model encrypted by party 0, its state dict, the input, the float64
+    logits, the planted fault's block and the plaintext's relative L2
+    without it): the fault is the block whose absence the float64 logits
+    feel least."""
+    from curl_tpu_torch import models
+    from curl_tpu_torch.models import load_numpy_state_dict
+    from curl_tpu_torch.nn.module import skip_init
+
+    x = resnet_input(size)
+    with skip_init():
+        model = getattr(models, name)(num_classes=RESNET_CLASSES)
+    sd = resnet_state(model, x, dev)
+    load_numpy_state_dict(model, sd)
+    model.encrypt(src=0)
+    ref = plain_resnet_forward(sd, x, dev)
+    felt = {b: rel_l2(plain_resnet_forward(sd, x, dev, skip=b), ref) for b in skippable_blocks(sd)}
+    fault = min(felt, key=felt.get)
+    return model, sd, x, ref, fault, felt[fault]
+
+
+@contextlib.contextmanager
+def counting_columns():
+    """The im2col column matrices the ring convolutions copy while the
+    context is open: {"matrices": n, "bytes": b} (a 1 x 1 convolution at
+    stride 1 reads its input in place and copies none)."""
+    from curl_tpu_torch import ring
+
+    made = {"matrices": 0, "bytes": 0}
+    orig = ring._columns
+
+    def columns(x, *args):
+        cols, out = orig(x, *args)
+        if cols.untyped_storage().data_ptr() != x.untyped_storage().data_ptr():
+            made["matrices"] += 1
+            made["bytes"] += cols.numel() * cols.element_size()
+        return cols, out
+
+    ring._columns = columns
+    try:
+        yield made
+    finally:
+        ring._columns = orig
+
+
+def resnet_readings(logits, ref):
+    """(relative L2 against float64, top-1 agreement of every row)."""
+    return rel_l2(logits, ref), int((logits.argmax(-1) == ref.argmax(-1)).sum())
+
+
+def run_resnet(dev, name, capture):
+    """Phase 11: ``name`` (resnet18 or resnet50) at 3 x 224 x 224, batch 1,
+    1000 classes, under bench.py's kernel configuration, 2 parties, session
+    seed 11: build and encrypt, a warm-up forward recording every launch
+    signature (for phase 5), 3 forwards (the last counted: launches,
+    CommStats, peak memory), one profiled; the logits against float64 under
+    RESNET_LOGITS_REL_L2 and top-1 agreement, the rounds against the CPU
+    count, the least-felt block left out above the bound; with ``capture``
+    the forward through compile_parties(model.functional()) too."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+
+    ct.init(world_size=2, seed=SEED)
+    t0 = time.perf_counter()
+    model, sd, x, ref, fault_block, plain_fault = build_resnet(name, dev)
+    n_params = sum(np.asarray(v).size for k, v in sd.items() if "running" not in k)
+    resident = model.resident_share_bytes()
+    log(f"[{name}] {n_params} parameters, He-normal from numpy seed {RESNET_WEIGHT_SEED}, "
+        f"BatchNorm statistics from the float64 forward; built, calibrated and encrypted in "
+        f"{time.perf_counter() - t0:.1f} s; resident shares {resident / 2**30:.3f} GiB; the "
+        f"plaintext without block {fault_block} (the least felt): relative L2 {plain_fault:.5f}")
+    xe = ct.cryptensor(x)
+    failures = []
+    with cfg.temp_override(BENCH_CONFIG):
+        t0 = time.perf_counter()
+        with recording_launches() as calls:
+            logits = model(xe).get_plain_text()
+        log(f"[{name}] warm-up forward {time.perf_counter() - t0:.2f} s")
+        lat = []
+        for i in range(3):
+            if i == 2:
+                reset_launches()
+                ct.reset_communication_stats()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(xe)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if i == 2:
+                launches, by_op, _ = read_launches()
+                stats = ct.get_communication_stats()
+                peak = torch.cuda.max_memory_allocated()
+        del out
+        with counting_columns() as columns:
+            model(xe)
+        busy = profile_forward(model, xe, min(lat), tag=f"profile {name}")
+        fault = resnet_private(model, xe, skip=fault_block).get_plain_text()
+    err, agree = resnet_readings(logits, ref)
+    fault_err, _ = resnet_readings(fault, ref)
+    log(f"[{name}] latencies {', '.join(f'{v:.4f}' for v in lat)} s (best {min(lat):.4f} s, "
+        f"{1 / min(lat):.2f} images/s; {nvidia_smi_line()})")
+    log(f"[{name}] one forward: {stats['rounds']} rounds (the CPU count {RESNET_ROUNDS[name]}), "
+        f"{stats['bytes']} bytes per party; launches {launches}; fused_mul and max_step by op "
+        f"{by_op}")
+    log(f"[{name}] peak device memory {peak / 2**30:.2f} GiB in the forward, "
+        f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before it")
+    log(f"[{name}] im2col: {columns['matrices']} column matrices copied in one forward, "
+        f"{columns['bytes']} bytes ({columns['bytes'] / 2**20:.1f} MiB), the dealer's and both "
+        f"parties' Beaver operands")
+    log(f"[{name}] logits against float64: relative L2 {err:.5f} (bound {RESNET_LOGITS_REL_L2}), "
+        f"top-1 {'agrees' if agree else 'differs'} (private {int(logits.argmax())}, float64 "
+        f"{int(ref.argmax())})")
+    log(f"[{name}] planted fault, private forward without block {fault_block}: relative L2 "
+        f"{fault_err:.5f}")
+    if logits.shape != (1, RESNET_CLASSES) or not np.isfinite(logits).all():
+        failures.append(f"{name} logits {logits.shape} not finite (1, {RESNET_CLASSES})")
+    if err > RESNET_LOGITS_REL_L2:
+        failures.append(f"{name} logits relative L2 {err} > {RESNET_LOGITS_REL_L2}")
+    if fault_err <= RESNET_LOGITS_REL_L2:
+        failures.append(f"{name} planted fault {fault_err} passes the bound {RESNET_LOGITS_REL_L2}")
+    if stats["rounds"] != RESNET_ROUNDS[name]:
+        failures.append(f"{name} rounds {stats['rounds']} != the CPU count {RESNET_ROUNDS[name]}")
+    missing = [k for k, n in launches.items() if n == 0 and k not in RESNET_UNLAUNCHED]
+    missing += [c for c in unlaunched_chains(by_op) if c not in RESNET_UNLAUNCHED]
+    if missing:
+        failures.append(f"{name} forward launched no {missing}: {launches}, {by_op}")
+    if recorded_launches(calls) != (launches, by_op):
+        failures.append(f"{name} recorded launches {recorded_launches(calls)} != counted "
+                        f"{(launches, by_op)}")
+    res = dict(calls=calls, launches=launches, by_op=by_op, stats=stats, best_s=min(lat),
+               busy_ms=busy, peak=peak)
+    if capture:
+        res["captured"], more = run_captured_resnet(name, model, xe, ref, res)
+        failures += more
+    del model, xe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+def run_captured_resnet(name, model, xe, ref, res):
+    """Phase 11's capture: ``compile_parties(model.functional())`` at
+    CAPTURE_SEED (launch counts and CommStats reset just before and read
+    just after), replays at REPLAYS fresh seeds, the capture seed again,
+    and the forward eagerly under the capture seed's keys from the
+    capture's draw counter: bit-identical to the replay, equal CommStats
+    and launches, the logits of two seeds within the bound."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch import random as crandom
+    from curl_tpu_torch.config import cfg
+
+    tag = f"captured {name}"
+    apply_fn, params = model.functional()
+    step = ct.compile_parties(apply_fn, 2)
+    with cfg.temp_override(BENCH_CONFIG):
+        reset_launches()
+        ct.reset_communication_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        first = step(CAPTURE_SEED, params, xe)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches, by_op, _ = read_launches()
+        stats = ct.get_communication_stats()
+        graph = torch.cuda.memory_allocated() - held
+        first_logits = first.get_plain_text()
+        lat, other = [], None
+        for i in range(REPLAYS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(CAPTURE_SEED + 1 + i, params, xe)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if other is None:
+                other = out.get_plain_text()
+        again = step(CAPTURE_SEED, params, xe)
+        after = ct.get_communication_stats()
+        peak = torch.cuda.max_memory_allocated() - held
+        reset_launches()
+        ct.reset_communication_stats()
+        resume = crandom.counter()
+        crandom.set_counter(step.counter)
+        with ct.parallel.mpc_context(crandom.make_party_keys(CAPTURE_SEED, 2), 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager = apply_fn(params, xe)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+        crandom.set_counter(resume)
+        eager_launches, eager_by_op, _ = read_launches()
+        eager_stats = ct.get_communication_stats()
+        best = min(lat)
+        busy = profile_forward(None, None, best, tag=f"profile, {tag}", top=6,
+                               call=lambda: step(CAPTURE_SEED + REPLAYS + 1, params, xe))
+    log(f"[{tag}] first call {first_s:.2f} s: warm-up forward {step.warmup_s:.2f} s, capture "
+        f"and instantiation {step.capture_s:.2f} s, one replay; the graph keeps "
+        f"{step.constants} public constants")
+    log(f"[{tag}] the capture's launches {launches}; fused_mul and max_step by op {by_op}")
+    log(f"[{tag}] replay latencies {', '.join(f'{v:.4f}' for v in lat)} s: best {best:.4f} s, "
+        f"{1 / best:.2f} images/s; the eager forward beside it {eager_s:.4f} s (the eager "
+        f"best {res['best_s']:.4f} s; {nvidia_smi_line()})")
+    log(f"[{tag}] device memory: the graph's pool and buffers hold {graph / 2**30:.3f} GiB "
+        f"after the capture; peak {peak / 2**30:.3f} GiB above the {held / 2**30:.2f} GiB "
+        f"held before it")
+    checks = {
+        "replay at the capture seed bit-identical to the eager forward at its keys and counter":
+            torch.equal(first.share, eager.share),
+        "the same seed twice bit-identical": torch.equal(first.share, again.share),
+        "two seeds different logits": not np.array_equal(first_logits, other),
+        "rounds and bytes of the capture equal the eager forward's":
+            (stats["rounds"], stats["bytes"]) == (eager_stats["rounds"], eager_stats["bytes"])
+            == (res["stats"]["rounds"], res["stats"]["bytes"]) and after == stats,
+        "the capture launched every kernel the eager forward launched, as often":
+            (launches, by_op) == (eager_launches, eager_by_op) == (res["launches"], res["by_op"]),
+    }
+    for seed, logits in ((CAPTURE_SEED, first_logits), (CAPTURE_SEED + 1, other)):
+        err, agree = resnet_readings(logits, ref)
+        log(f"[{tag}] logits at seed {seed}: relative L2 {err:.5f}, top-1 "
+            f"{'agrees' if agree else 'differs'}")
+        checks[f"logits at seed {seed} within relative L2 {RESNET_LOGITS_REL_L2}"] = (
+            np.isfinite(logits).all() and err <= RESNET_LOGITS_REL_L2)
+    for check, ok in checks.items():
+        log(f"[{tag}] {check}: {'held' if ok else 'FAILED'}")
+    failures = [f"{tag}: {check}" for check, ok in checks.items() if not ok]
+    chains = {c: sum(n for t, n in by_op.items() if is_tag(t)) for c, is_tag in CHAIN_TAGS.items()}
+    return dict(launches=launches, chains=chains, best_s=best, eager_s=eager_s, busy_ms=busy,
+                capture_s=step.capture_s, peak=peak), failures
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the forward captured as a CUDA graph (compile_parties)
 # ---------------------------------------------------------------------------
 
@@ -3716,6 +4098,17 @@ def run_paths(dev, gen):
     failures += cached_failures + run_dealer()
     paths.update(cached.pop("paths"))
     phase_done("phase 10")
+    # phase 11: ResNet-18 (eager and captured) and ResNet-50 at 224 x 224;
+    # before phase 5, which holds their launch signatures too
+    resnet_captured = {}
+    for name, capture in RESNETS:
+        res, more = run_resnet(dev, name, capture)
+        failures += more
+        paths[name] = (res["calls"], res["launches"], res["by_op"])
+        if capture:
+            resnet_captured[name] = res["captured"]
+        del res
+    phase_done("phase 11")
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
@@ -3735,7 +4128,7 @@ def run_paths(dev, gen):
     # phase 6: the compressed GPT-2, GPT-Neo and GPT-Neo 2.7B forwards
     # through compile_parties, captured once and replayed; each model freed
     # after
-    captured = {GENERATE_PATH: generated["captured"], **cached.pop("captured")}
+    captured = {GENERATE_PATH: generated["captured"], **cached.pop("captured"), **resnet_captured}
     del generated
     for p, res in (("compressed", compressed), ("neo", neo), ("neo_large", neo_large)):
         captured[p], cap_failures = run_captured(p, res)

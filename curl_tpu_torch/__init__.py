@@ -79,6 +79,32 @@ def cryptensor(value, src: int = 0, precision=None, ptype_=ptype.arithmetic) -> 
     return MPCTensor.encrypt(value, src=src, precision=precision, ptype=ptype_)
 
 
+def _sizes(sizes):
+    return tuple(sizes[0]) if len(sizes) == 1 and isinstance(sizes[0], (tuple, list)) else sizes
+
+
+def rand(*sizes) -> MPCTensor:
+    """Private uniform [0, 1) samples (curl_tpu/__init__.py:511)."""
+    return MPCTensor.rand(*_sizes(sizes))
+
+
+def randn(*sizes) -> MPCTensor:
+    """Private standard normal samples by Box-Muller (curl_tpu/__init__.py:519)."""
+    return MPCTensor.randn(*_sizes(sizes))
+
+
+def bernoulli(tensor) -> MPCTensor:
+    """Private draws that are 1 with the public probabilities ``tensor``
+    (curl_tpu/__init__.py:526)."""
+    import numpy as np
+
+    return rand(*np.shape(tensor)).lt(tensor)
+
+
+def is_encrypted_tensor(obj) -> bool:
+    return isinstance(obj, MPCTensor)
+
+
 def get_communication_stats():
     return comm.get_communication_stats()
 

@@ -1,16 +1,18 @@
 """max / min / argmax / argmin reductions (counterpart of
 ``curl_tpu/functions/maximum.py``).
 
-Ported methods: ``log_reduction`` (pairwise halvings, then the all-pairs max
-of the remainder), ``pairwise`` (all-pairs comparisons) and
-``scan_reduction`` (a cascade of chunk folds and a butterfly tail, each step
-one compare and a one-multiply select). A tree method's argmax is its max,
+Every method of the JAX package: ``pairwise`` (all-pairs comparisons),
+``log_reduction`` (pairwise halvings, then the all-pairs max of the
+remainder), ``double_log_reduction`` (the max of sqrt(n) blocks of sqrt(n),
+recursively), ``accelerated_cascade`` (log log n halvings, then the double
+log reduction) and ``scan_reduction`` (a cascade of chunk folds and a
+butterfly tail, each step one compare and a one-multiply select). A tree
+method's argmax is its max,
 then ``eq`` against it; ties are broken by a weighted random one-hot
 (``weighted_index``) whatever the method. With ``mpc.fused_max_step`` =
 "cuda" each stage of ``scan_reduction`` (a chunk fold's steps, the
 butterfly's steps) is one fused pass (``kernels/max_step.py``), for the
-softmax's max and the argmax alike. ``double_log_reduction`` and
-``accelerated_cascade`` are queue item A10b.
+softmax's max and the argmax alike.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 from ..config import cfg
 from ..mpc.mpc import MPCTensor
 
-_LATER = ("double_log_reduction", "accelerated_cascade")
+_TREES = ("log_reduction", "double_log_reduction", "accelerated_cascade", "scan_reduction")
 
 
 def argmax(self, dim=None, keepdim=False, one_hot=True):
@@ -74,7 +76,7 @@ def max_value(self, dim=None, keepdim=False):
     method = cfg.functions.max_method
     if self.dim() == 0:
         return self
-    if method in ("log_reduction", "scan_reduction") + _LATER:
+    if method in _TREES:
         out = _max_helper_all_tree_reductions(self, dim=dim, method=method)
         if dim is not None and keepdim and out.dim() < self.dim():
             out = out.unsqueeze(dim)
@@ -112,6 +114,52 @@ def _max_helper_log_reduction(enc_tensor, dim):
     with cfg.temp_override({"functions.max_method": "pairwise"}):
         enc_max_vec, _ = reduced.max(dim=dim)
     return enc_max_vec
+
+
+def _max_helper_double_log_recursive(enc_tensor, dim):
+    """The max along ``dim`` (kept) of sqrt(n) blocks' maxima
+    (maximum.py:122-149): the first sqrt(n) * (n // sqrt(n)) lanes are
+    reshaped into sqrt(n) rows along ``dim`` (the next dim takes the rest),
+    reduced recursively, and the all-pairs max runs over their maxima and
+    the remainder."""
+    n = enc_tensor.size(dim)
+    sqrt_n = int(math.sqrt(n))
+    if n == 1:
+        return enc_tensor
+    if sqrt_n <= 1:
+        with cfg.temp_override({"functions.max_method": "pairwise"}):
+            return enc_tensor.max(dim=dim, keepdim=True)[0]
+    count_sqrt_n = n // sqrt_n
+    split_t, remainder = enc_tensor.split([sqrt_n * count_sqrt_n, n % sqrt_n], dim=dim)
+    size_arr = list(enc_tensor.size())
+    size_arr[dim], size_arr[dim + 1] = sqrt_n, enc_tensor.size(dim + 1) * count_sqrt_n
+    split_max = _max_helper_double_log_recursive(split_t.reshape(size_arr), dim)
+    size_arr[dim], size_arr[dim + 1] = count_sqrt_n, enc_tensor.size(dim + 1)
+    full = split_max.reshape(size_arr)
+    if n % sqrt_n:
+        full = MPCTensor.cat([full, remainder], axis=dim)
+    with cfg.temp_override({"functions.max_method": "pairwise"}):
+        return full.max(dim=dim, keepdim=True)[0]
+
+
+def _max_helper_double_log_reduction(enc_tensor, dim):
+    """The max along ``dim`` by the double log reduction (maximum.py:152-167)."""
+    dim = dim + enc_tensor.dim() if dim < 0 else dim
+    size_arr = [enc_tensor.size(i) for i in range(enc_tensor.dim()) if i != dim]
+    out = _max_helper_double_log_recursive(enc_tensor.unsqueeze(dim + 1), dim)
+    return out.squeeze(dim + 1).reshape(size_arr)
+
+
+def _max_helper_accelerated_cascade(enc_tensor, dim):
+    """log log n pairwise halvings, then the double log reduction
+    (maximum.py:170-186); the all-pairs max below 3 lanes."""
+    n = enc_tensor.size(dim)
+    if n < 3:
+        with cfg.temp_override({"functions.max_method": "pairwise"}):
+            return enc_tensor.max(dim=dim)[0]
+    steps = int(math.log(builtins.max(math.log(builtins.max(math.log(n), 1)), 1))) + 1
+    reduced = _compute_pairwise_comparisons_for_steps(enc_tensor, dim, steps)
+    return _max_helper_double_log_reduction(reduced, dim)
 
 
 def _use_fused_max_step() -> bool:
@@ -205,9 +253,9 @@ def _max_helper_all_tree_reductions(enc_tensor, dim=None, method="log_reduction"
     """The max along ``dim`` (of the flattened tensor where None) by a tree
     method (maximum.py:392)."""
     helpers = {"log_reduction": _max_helper_log_reduction,
+               "double_log_reduction": _max_helper_double_log_reduction,
+               "accelerated_cascade": _max_helper_accelerated_cascade,
                "scan_reduction": _max_helper_scan_reduction}
-    if method in _LATER:
-        raise NotImplementedError(f"max_method {method!r} is not ported yet (ROADMAP A10b)")
     if method not in helpers:
         raise RuntimeError("Unknown max method")
     if enc_tensor.dim() == 0:
@@ -235,7 +283,7 @@ def _argmax_helper(enc_tensor, dim=None, one_hot=True, method="pairwise", _retur
     if method == "pairwise":
         result_args = _argmax_helper_pairwise(updated, -1 if dim is None else dim)
         result_val = None
-    elif method in ("log_reduction", "scan_reduction") + _LATER:
+    elif method in _TREES:
         result_args, result_val = _argmax_helper_all_tree_reductions(updated, dim, method)
     else:
         raise RuntimeError("Unknown argmax method")

@@ -87,6 +87,52 @@ def _structure_ops():
         axes = tuple(_ax(a) for a in (axis if isinstance(axis, (tuple, list)) else (axis,)))
         return self.with_share(self.share.sum(dim=axes, keepdim=keepdim))
 
+    def flip(self, dims):
+        dims = dims if isinstance(dims, (tuple, list)) else (dims,)
+        return self.with_share(self.share.flip(tuple(_ax(d) for d in dims)))
+
+    def gather(self, dim, index):
+        """Entries along ``dim`` at ``index`` (numpy's take_along_axis:
+        the other dims of index and tensor broadcast)."""
+        index = ring.constant(index, self.share.device)
+        dim = dim % self.ndim
+        shape = list(torch.broadcast_shapes(
+            tuple(1 if d == dim else n for d, n in enumerate(self.shape)),
+            tuple(1 if d == dim else n for d, n in enumerate(index.shape))))
+        share = self.share.expand((self.share.shape[0],) + tuple(
+            self.shape[d] if d == dim else n for d, n in enumerate(shape)))
+        shape[dim] = index.shape[dim]
+        index = index.expand(shape).unsqueeze(0).expand((share.shape[0],) + tuple(shape))
+        return self.with_share(torch.gather(share, dim + 1, index))
+
+    def take(self, index, dimension=None):
+        if dimension is None:
+            index = ring.constant(index, self.share.device)
+            return self.with_share(self.share.reshape(self.share.shape[0], -1)[:, index])
+        return index_select(self, dimension, index)
+
+    def repeat(self, *reps):
+        """numpy's tile of each party's share (regular.py:125-128)."""
+        reps = _sizes(reps)
+        nd = max(len(reps), self.ndim)
+        reps = (1,) * (nd - len(reps)) + tuple(reps)
+        share = self.share.reshape((self.share.shape[0],) + (1,) * (nd - self.ndim) + self.shape)
+        return self.with_share(share.repeat((1,) + reps))
+
+    def unfold(self, dimension, size, step):
+        """The windows of ``size`` at ``step`` along ``dimension``, which
+        becomes their count; a trailing axis of ``size`` (Tensor.unfold)."""
+        return self.with_share(self.share.unfold(_ax(dimension % self.ndim), size, step))
+
+    def trace_(self):
+        return self.with_share(self.share.diagonal(dim1=1, dim2=2).sum(-1))
+
+    def chunk(self, chunks, dim=0):
+        return split(self, -(-self.shape[dim] // chunks), dim=dim)
+
+    def unbind(self, dim=0):
+        return [self.with_share(self.share.select(_ax(dim), i)) for i in range(self.shape[dim])]
+
     def split(self, split_size, dim=0):
         n = self.shape[dim]
         if isinstance(split_size, int):
@@ -116,6 +162,14 @@ def _structure_ops():
         "cumsum": cumsum,
         "sum": sum_,
         "split": split,
+        "flip": flip,
+        "gather": gather,
+        "take": take,
+        "repeat": repeat,
+        "unfold": unfold,
+        "trace": trace_,
+        "chunk": chunk,
+        "unbind": unbind,
     }
 
 
@@ -184,5 +238,29 @@ def prod(self, axis=None, keepdim=False):
     return x if keepdim else x.squeeze(axis)
 
 
-for _name, _fn in (("mean", mean), ("var", var), ("prod", prod)):
+def dot(self, y, weights=None):
+    """The dot product of the flattened tensors (regular.py:287-292)."""
+    y = y.flatten() if isinstance(y, (MPCTensor, ArithmeticSharedTensor)) else _flat_public(y)
+    result = self.flatten().mul(y)
+    if weights is not None:
+        result = result.mul(weights)
+    return result.sum()
+
+
+def ger(self, y):
+    """The outer product (regular.py:295-299): one private matmul."""
+    b = y.view(1, -1) if isinstance(y, (MPCTensor, ArithmeticSharedTensor)) else (
+        _flat_public(y).reshape(1, -1))
+    return self.view(-1, 1).matmul(b)
+
+
+def _flat_public(y):
+    if isinstance(y, torch.Tensor):
+        return y.reshape(-1)
+    import numpy as np
+
+    return np.ravel(np.asarray(y))
+
+
+for _name, _fn in (("mean", mean), ("var", var), ("prod", prod), ("dot", dot), ("ger", ger)):
     setattr(MPCTensor, _name, _fn)

@@ -8,4 +8,13 @@ from .bert_classifier import (  # noqa: F401
     load_safetensors,
     plain_classifier_forward,
 )
+from .resnet import (  # noqa: F401
+    BasicBlock,
+    Bottleneck,
+    ResNet,
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
+)
 from . import generate  # noqa: F401

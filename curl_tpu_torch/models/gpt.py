@@ -52,8 +52,8 @@ class ChunkedEmbedding(nn.Module):
 
 def _install(module, sd, prefix="", keys=None):
     """Install ``sd[prefix + key]`` (numpy arrays) as the float64 parameter
-    ``key`` of ``module``, for each of ``keys`` (default: every parameter
-    key of the module)."""
+    or buffer ``key`` of ``module``, for each of ``keys`` (default: every
+    key of the module's state dict)."""
     params = module.state_dict()
     for key in params if keys is None else keys:
         own = params[key]
@@ -64,7 +64,8 @@ def _install(module, sd, prefix="", keys=None):
         mod = module
         for part in path:
             mod = getattr(mod, part)
-        mod._params[name] = torch.from_numpy(np.array(arr))
+        store = mod._buffers if name in mod._buffers else mod._params
+        store[name] = torch.from_numpy(np.array(arr))
 
 
 class GPT(nn.Module):
@@ -284,9 +285,10 @@ class GPTNeoLarge(GPT):
 def load_numpy_state_dict(model: nn.Module, sd) -> nn.Module:
     """Install a plaintext state dict of numpy arrays, keyed as the JAX
     package's ``Module.state_dict()`` (``tok_embed.weight``, ``pos_embed``,
-    ``blocks.<i>.attn.search.weight``, ..., ``fc.weight``), as float64
-    parameters. Every key must name a parameter of the same shape, and
-    every parameter must be given."""
+    ``blocks.<i>.attn.search.weight``, ..., ``fc.weight``; a ResNet's
+    torchvision keys, BatchNorm's running statistics included), as float64
+    parameters and buffers. Every key must name a parameter or buffer of
+    the same shape, and every one must be given."""
     own = dict(model.state_dict())
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))

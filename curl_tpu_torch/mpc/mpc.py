@@ -239,6 +239,21 @@ class MPCTensor:
     def matmul(self, y):
         return self._wrap(self._tensor.matmul(_unwrap(y)))
 
+    def conv1d(self, kernel, **kwargs):
+        return self._wrap(self._tensor.conv1d(_unwrap(kernel), **kwargs))
+
+    def conv2d(self, kernel, **kwargs):
+        return self._wrap(self._tensor.conv2d(_unwrap(kernel), **kwargs))
+
+    def conv_transpose1d(self, kernel, **kwargs):
+        return self._wrap(self._tensor.conv_transpose1d(_unwrap(kernel), **kwargs))
+
+    def conv_transpose2d(self, kernel, **kwargs):
+        return self._wrap(self._tensor.conv_transpose2d(_unwrap(kernel), **kwargs))
+
+    def avg_pool2d(self, kernel_size, **kwargs):
+        return self._wrap(self._tensor.avg_pool2d(kernel_size, **kwargs))
+
     def square(self):
         return self._wrap(self._tensor.square())
 

@@ -195,6 +195,29 @@ class ArithmeticSharedTensor:
         out = _get_protocol().matmul(self, y)
         return self._rescale_product(out, y.encoder.scale)
 
+    def conv1d(self, kernel, **kwargs):
+        return self._conv(kernel, "conv1d", **kwargs)
+
+    def conv2d(self, kernel, **kwargs):
+        return self._conv(kernel, "conv2d", **kwargs)
+
+    def conv_transpose1d(self, kernel, **kwargs):
+        return self._conv(kernel, "conv_transpose1d", **kwargs)
+
+    def conv_transpose2d(self, kernel, **kwargs):
+        return self._conv(kernel, "conv_transpose2d", **kwargs)
+
+    def _conv(self, kernel, op, **kwargs):
+        """A convolution by a public kernel (the ring's, on every party's
+        share at once) or a private one (a Beaver protocol), then the
+        product's rescale (arithmetic.py:276-283)."""
+        if _is_public(kernel):
+            encoded = _encode(self.encoder, kernel)
+            out = self.with_share(getattr(ring, op)(self.share, encoded, **kwargs))
+            return self._rescale_product(out, self.encoder.scale)
+        out = getattr(_get_protocol(), op)(self, kernel, **kwargs)
+        return self._rescale_product(out, kernel.encoder.scale)
+
     def square(self):
         from ...kernels import fused_mul
 
@@ -304,3 +327,23 @@ class ArithmeticSharedTensor:
         return ArithmeticSharedTensor(
             torch.cat([t.share for t in tensors], dim=axis), tensors[0].encoder
         )
+
+    def avg_pool2d(self, kernel_size, stride=None, padding=0, ceil_mode=False):
+        """The window sum divided by the whole window, padding included
+        (arithmetic.py:488-496)."""
+        if ceil_mode:
+            raise NotImplementedError("ceil_mode not supported for avg_pool2d")
+        z = self._sum_pool2d(kernel_size, stride=stride, padding=padding)
+        k = (kernel_size, kernel_size) if isinstance(kernel_size, (int, float)) else kernel_size
+        return z.div(int(k[0]) * int(k[1]))
+
+    def _sum_pool2d(self, kernel_size, stride=None, padding=0):
+        """Each window's sum of shares over the last two dims, zero shares in
+        the padding (arithmetic.py:498-515): local, no communication."""
+        k = (int(kernel_size),) * 2 if isinstance(kernel_size, (int, float)) else tuple(kernel_size)
+        s = k if stride is None else ((stride,) * 2 if isinstance(stride, int) else tuple(stride))
+        p = (padding,) * 2 if isinstance(padding, int) else tuple(padding)
+        share = torch.nn.functional.pad(self.share, (p[1], p[1], p[0], p[0]))
+        d = share.dim()
+        windows = share.unfold(d - 2, k[0], s[0]).unfold(d - 1, k[1], s[1])
+        return self.with_share(windows.sum(dim=(-2, -1)))

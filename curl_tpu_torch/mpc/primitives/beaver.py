@@ -3,7 +3,7 @@
 Counterpart of ``curl_tpu/mpc/primitives/beaver.py``; every protocol costs
 the same rounds and bytes as there:
 
-  mul/matmul        1 batched reveal
+  mul/matmul/conv   1 batched reveal
   square            1 reveal
   truncate          1 gather + the dealer's scatter (more than 2 parties)
   egk_trunc_pr      1 reveal (EGK+20 Fig. 10)
@@ -23,9 +23,11 @@ A secret operand that many products reuse (a decode loop's weights, the LM
 head over chunks of positions) can be Beaver-masked once
 (``mask_operand``, ``MaskedArithmetic``): b drawn and delta = y - b revealed
 once, each later product then draws only its input-sized a and reveals only
-eps = x - a. Not ported: the reference's tuple one-hot forms (and with them
-the private embedding of more than two parties), active security, and the
-ring convolutions (queue item A10b).
+eps = x - a. A convolution's reconstruction ``eps * b + x * delta`` (and
+a masked one's three products) is one ``ring.conv_acc``: the operands'
+im2col columns in one ring-mm launch. Not ported: the reference's tuple
+one-hot forms (and with them the private embedding of more than two
+parties), and active security.
 """
 
 from __future__ import annotations
@@ -66,14 +68,50 @@ def _opens_compressed(op, y) -> bool:
             and comm.get_world_size() == 2 and _provider().NAME == "TFP")
 
 
-def _beaver_protocol(op, x, y):
+def _ring_sum(op, pairs, kwargs):
+    """sum_p op(x_p, w_p) in one ring-mm launch: ``matmul_acc`` of the
+    products, or ``conv_acc`` of the convolutions' columns."""
+    if op == "matmul":
+        return ring.matmul_acc(pairs)
+    return ring.conv_acc(op, pairs, **kwargs)
+
+
+def _product_pairs(op, x_ndim, y_ndim, pairs):
+    """The Beaver products' pairs (left share or public, right share or
+    public) aligned for one launch, and the function that takes the sum
+    back to the product's shape. A matmul's 1-D operand is a row (x) or a
+    column (y) matrix, squeezed after, as torch.matmul treats it; a
+    convolution's weight share gains a batch dim that broadcasts over the
+    input's batch."""
+    def party(t, ndim):  # a share, or a public operand without the party axis
+        return t.dim() > ndim
+
+    if op == "matmul":
+        xv, yv = x_ndim == 1, y_ndim == 1
+        nd = max(x_ndim + xv, y_ndim + yv)
+        out = []
+        for a, b in pairs:
+            a = a.unsqueeze(-2) if xv else a
+            b = b.unsqueeze(-1) if yv else b
+            out.append((lift(a, nd) if party(a, x_ndim + xv) else a,
+                        lift(b, nd) if party(b, y_ndim + yv) else b))
+
+        def back(z):
+            z = z.squeeze(-2) if xv else z
+            return z.squeeze(-1) if yv else z
+
+        return out, back
+    return [(a, lift(b, y_ndim + 1) if party(b, y_ndim) else b) for a, b in pairs], lambda z: z
+
+
+def _beaver_protocol(op, x, y, **kwargs):
     """z = c + eps*b + x*delta with one batched reveal (x = a + eps, so
     this equals the reference's c + eps*b + a*delta + eps*delta). A
     seed-compressed matmul operand y is opened in one pass
     (``SeedCompressedArithmetic.open``): the same delta, rounds and bytes."""
     if cfg.mpc.active_security:
         raise NotImplementedError("active security is not ported yet")
-    a, b, c = _provider().generate_additive_triple(x.shape, y.shape, op)
+    a, b, c = _provider().generate_additive_triple(x.shape, y.shape, op, **kwargs)
     if _opens_compressed(op, y):
         # one batched reveal of eps and delta: eps's round and bytes are
         # counted here, delta's bytes with them
@@ -82,23 +120,22 @@ def _beaver_protocol(op, x, y):
         comm.register_virtual("all_sum", delta.numel() * delta.element_size(), rounds=0)
     else:
         epsilon, delta = comm.all_sum([x.share - a.share, y.share - b.share])
-    if op == "matmul":
-        if x.ndim < 2 or y.ndim < 2:
-            raise NotImplementedError("private matmul of a 1-D operand is not ported yet")
-        nd = max(x.ndim, y.ndim)
-        # both products in one ring-mm launch (one accumulator, one write)
-        z = c.share + ring.matmul_acc(
-            [(epsilon, lift(b.share, nd)), (lift(x.share, nd), delta)]
-        )
+    if op == "mul":
+        nd = len(torch.broadcast_shapes(x.shape, y.shape))
+        z = c.share + epsilon * lift(b.share, nd) + lift(x.share, nd) * delta
         return ArithmeticSharedTensor(z, x.encoder)
-    nd = len(torch.broadcast_shapes(x.shape, y.shape))
-    z = c.share + epsilon * lift(b.share, nd) + lift(x.share, nd) * delta
-    return ArithmeticSharedTensor(z, x.encoder)
+    # both products in one ring-mm launch (one accumulator, one write)
+    pairs, back = _product_pairs(op, x.ndim, y.ndim, [(epsilon, b.share), (x.share, delta)])
+    return ArithmeticSharedTensor(c.share + back(_ring_sum(op, pairs, kwargs)), x.encoder)
 
 
 _RING_OPS = {
     "mul": lambda a, b: a * b,
     "matmul": ring.matmul,
+    "conv1d": ring.conv1d,
+    "conv2d": ring.conv2d,
+    "conv_transpose1d": ring.conv_transpose1d,
+    "conv_transpose2d": ring.conv_transpose2d,
 }
 
 
@@ -168,30 +205,30 @@ def mask_operand(y: ArithmeticSharedTensor):
     return MaskedArithmetic(b.reshape(shape), b_share, delta, y.encoder)
 
 
-def _masked_protocol(op, x, y: MaskedArithmetic):
+def _masked_protocol(op, x, y: MaskedArithmetic, **kwargs):
     """One product against a pre-masked y (beaver.py:196-221): the dealer
     draws only an input-sized a. Draws in the JAX package's order: a, its
-    sharing, then the output's sharing (a zero sharing for a matmul, the
-    sharing of c = op(a, b) otherwise)."""
-    if op == "matmul" and (x.ndim < 2 or y.ndim < 2):
-        raise NotImplementedError("private matmul of a 1-D operand is not ported yet")
+    sharing, then the output's sharing (a zero sharing for a matmul or a
+    convolution, the sharing of c = op(a, b) otherwise)."""
     draw_a, share_a, share_c = rng.reserve_counts(3)
-    if op == "matmul":
-        batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
-        out_shape = tuple(batch) + (x.shape[-2], y.shape[-1])
+    if op != "mul":
+        # the product's shape, from a run on shapes alone (the meta device)
+        out_shape = _RING_OPS[op](torch.empty(x.shape, dtype=torch.int64, device="meta"),
+                                  torch.empty(y.shape, dtype=torch.int64, device="meta"),
+                                  **kwargs).shape
         (a_out, a), c_out = rng.launch([
             rng.segment_fresh(x.shape, 64, draw_a, share_a, emit=True),
             rng.segment_zero(out_shape, share_c)])
         a = a.reshape(x.shape)
         epsilon = comm.all_sum(x.share - rng.shares(a_out, x.shape))
-        nd = max(x.ndim, y.ndim)
-        # the dealer product a @ b (party 0's: rank0(a) @ b = rank0(a @ b)),
-        # eps @ b and x @ delta in one ring-mm launch of three pairs, at any
-        # K: the JAX package sums three products where 3 K >= 2^17
-        # (ring.py:319); the two sums are equal mod 2^64
-        z = rng.shares(c_out, out_shape) + ring.matmul_acc([
-            (rank0(a, ndim=nd), y.b_plain), (epsilon, lift(y.b_share, nd)),
-            (lift(x.share, nd), y.delta)])
+        # the dealer product op(a, b) (party 0's: op(rank0(a), b) =
+        # rank0(op(a, b))), op(eps, b) and op(x, delta) in one ring-mm
+        # launch of three pairs, at any K: the JAX package sums three
+        # products where 3 K >= 2^17 (ring.py:319); the two sums are equal
+        # mod 2^64
+        pairs, back = _product_pairs(op, x.ndim, y.ndim, [
+            (rank0(a, ndim=x.ndim), y.b_plain), (epsilon, y.b_share), (x.share, y.delta)])
+        z = rng.shares(c_out, out_shape) + back(_ring_sum(op, pairs, kwargs))
         return ArithmeticSharedTensor(z, x.encoder)
     ((a_out, a),) = rng.launch([rng.segment_fresh(x.shape, 64, draw_a, share_a, emit=True)])
     c = _RING_OPS[op](a.reshape(x.shape), y.b_plain)
@@ -214,18 +251,21 @@ def matmul(x, y):
     return _beaver_protocol("matmul", x, y)
 
 
-def _no_conv(op):
+def _conv(op):
     def conv(x, y, **kwargs):
-        raise NotImplementedError(f"the ring convolution {op} is not ported yet (ROADMAP A10b)")
+        if isinstance(y, MaskedArithmetic):
+            return _masked_protocol(op, x, y, **kwargs)
+        return _beaver_protocol(op, x, y, **kwargs)
 
     conv.__name__ = op
+    conv.__doc__ = f"Private {op} (beaver.py:236-254): one Beaver triple, one batched reveal."
     return conv
 
 
-conv1d = _no_conv("conv1d")
-conv2d = _no_conv("conv2d")
-conv_transpose1d = _no_conv("conv_transpose1d")
-conv_transpose2d = _no_conv("conv_transpose2d")
+conv1d = _conv("conv1d")
+conv2d = _conv("conv2d")
+conv_transpose1d = _conv("conv_transpose1d")
+conv_transpose2d = _conv("conv_transpose2d")
 
 
 def square(x):

@@ -40,14 +40,16 @@ def _ring_op(op):
 class TrustedFirstParty(TupleProvider):
     NAME = "TFP"
 
-    def generate_additive_triple(self, size0, size1, op):
-        """Beaver triple (a, b, c = op(a, b)); c is one dealer product.
-        Two launches: a and b drawn and shared, then c shared."""
+    def generate_additive_triple(self, size0, size1, op, **kwargs):
+        """Beaver triple (a, b, c = op(a, b)); c is one dealer product (a
+        convolution's under its keyword arguments, through the ring's
+        im2col product). Two launches: a and b drawn and shared, then c
+        shared."""
         draw_a, draw_b, share_a, share_b, share_c = rng.reserve_counts(5)
         (da, a), (db, b) = rng.launch([
             rng.segment_fresh(size0, 64, draw_a, share_a, emit=True),
             rng.segment_fresh(size1, 64, draw_b, share_b, emit=True)])
-        c = _ring_op(op)(a.reshape(tuple(size0)), b.reshape(tuple(size1)))
+        c = _ring_op(op)(a.reshape(tuple(size0)), b.reshape(tuple(size1)), **kwargs)
         (dc,) = rng.launch([rng.segment_share(c, share_c)])
         return _arith(da, size0), _arith(db, size1), _arith(dc, c.shape)
 

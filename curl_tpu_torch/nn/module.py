@@ -4,10 +4,13 @@ Modules are ``torch.nn.Module`` subclasses. Their parameters are held in
 their own registry (``register_param``), as plaintext float64 tensors until
 ``encrypt(src)`` shares them, then as MPCTensors, so that the same
 ``forward`` runs on encrypted inputs with every party's share stacked on the
-leading axis. ``state_dict`` uses the JAX package's key names. Initial
-values follow the JAX package's distributions (Linear weight and bias
-uniform in +-1/sqrt(fan_in), Embedding standard normal, LayerNorm 1 and 0),
-drawn from the session's explicit torch.Generator.
+leading axis. Buffers (BatchNorm's running statistics) are torch buffers,
+public float64 tensors that ``encrypt`` leaves alone. ``state_dict`` holds
+both under the JAX package's key names. A module starts in eval mode, as
+the JAX package's do (``train()`` switches). Initial values follow the JAX
+package's distributions (Linear and Conv weight and bias uniform in
++-1/sqrt(fan_in), Embedding standard normal, LayerNorm and BatchNorm 1 and
+0), drawn from the session's explicit torch.Generator.
 
 Seed-compressed parameters (``encrypt(seed_compress=True)``, 2 parties,
 inference): each keeps share0 and a key (``mpc/primitives/compressed.py``).
@@ -75,6 +78,7 @@ class Module(torch.nn.Module):
     def __init__(self):
         super().__init__()
         self._params = OrderedDict()
+        self.training = False
 
     def register_param(self, name, value):
         self._params[name] = value
@@ -93,7 +97,11 @@ class Module(torch.nn.Module):
                 yield from m.named_params(f"{prefix}{mname}.")
 
     def state_dict(self, prefix=""):
-        return OrderedDict(self.named_params(prefix))
+        """Parameters and buffers by the JAX package's keys."""
+        out = OrderedDict(self.named_params(prefix))
+        for name, b in self.named_buffers(prefix.rstrip(".")):
+            out[name] = b
+        return out
 
     def _plaintext_params(self):
         """(module, name) of every plaintext parameter, in module order."""
@@ -185,6 +193,12 @@ class Sequential(Module):
     def __iter__(self):
         return iter(self._modules.values())
 
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
 
 class Linear(Module):
     """y = x W^T + b."""
@@ -203,6 +217,135 @@ class Linear(Module):
         if "bias" in self._params:
             out = out + self._params["bias"]
         return out
+
+
+def _channel_view(p, shape):
+    """A per-channel parameter viewed as ``shape`` to broadcast over an
+    NC... activation: an encrypted one by ``view``, a plaintext one by
+    ``reshape``."""
+    return p.view(*shape) if isinstance(p, MPCTensor) else p.reshape(shape)
+
+
+class _ConvNd(Module):
+    """Conv1d / Conv2d (module.py:611-694): weight (O, C/g, *k) and bias
+    (O,) uniform in +-1/sqrt(fan_in), fan_in = C/g * prod(k)."""
+
+    _ndim = 2
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, bias=True):
+        super().__init__()
+        k = (kernel_size,) * self._ndim if isinstance(kernel_size, int) else tuple(kernel_size)
+        self.stride = stride
+        self.padding = padding
+        self.dilation = dilation
+        self.groups = groups
+        fan_in = in_channels // groups * math.prod(k)
+        bound = math.sqrt(1.0 / fan_in)
+        self.register_param("weight", _uniform((out_channels, in_channels // groups) + k, bound))
+        if bias:
+            self.register_param("bias", _uniform((out_channels,), bound))
+
+    def forward(self, x):
+        op = "conv%dd" % self._ndim
+        out = getattr(x, op)(self._params["weight"], stride=self.stride, padding=self.padding,
+                             dilation=self.dilation, groups=self.groups)
+        if "bias" in self._params:
+            out = out + _channel_view(self._params["bias"], (1, -1) + (1,) * self._ndim)
+        return out
+
+
+class Conv1d(_ConvNd):
+    _ndim = 1
+
+
+class Conv2d(_ConvNd):
+    _ndim = 2
+
+
+class _ConvTransposeNd(Module):
+    """Transposed convolution (module.py:697-745): torch's (in, out/g, *k)
+    weight layout, fan_in = out * prod(k); groups are refused."""
+
+    _ndim = 2
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, bias=True, dilation=1):
+        super().__init__()
+        k = (kernel_size,) * self._ndim if isinstance(kernel_size, int) else tuple(kernel_size)
+        if groups != 1:
+            raise NotImplementedError("grouped conv_transpose not implemented")
+        self.stride = stride
+        self.padding = padding
+        self.output_padding = output_padding
+        self.dilation = dilation
+        self.groups = groups
+        bound = math.sqrt(1.0 / (out_channels * math.prod(k)))
+        self.register_param("weight", _uniform((in_channels, out_channels // groups) + k, bound))
+        if bias:
+            self.register_param("bias", _uniform((out_channels,), bound))
+
+    def forward(self, x):
+        op = "conv_transpose%dd" % self._ndim
+        out = getattr(x, op)(self._params["weight"], stride=self.stride, padding=self.padding,
+                             output_padding=self.output_padding, dilation=self.dilation,
+                             groups=self.groups)
+        if "bias" in self._params:
+            out = out + _channel_view(self._params["bias"], (1, -1) + (1,) * self._ndim)
+        return out
+
+
+class ConvTranspose1d(_ConvTransposeNd):
+    _ndim = 1
+
+
+class ConvTranspose2d(_ConvTransposeNd):
+    _ndim = 2
+
+
+class Dropout(Module):
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return x.dropout(p=self.p, training=self.training)
+
+
+class Flatten(Module):
+    def __init__(self, start_dim=1, end_dim=-1):
+        super().__init__()
+        self.start_dim = start_dim
+        self.end_dim = end_dim
+
+    def forward(self, x):
+        return x.flatten(self.start_dim, self.end_dim)
+
+
+class AvgPool2d(Module):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.ceil_mode = ceil_mode
+
+    def forward(self, x):
+        return x.avg_pool2d(self.kernel_size, stride=self.stride, padding=self.padding,
+                            ceil_mode=self.ceil_mode)
+
+
+class MaxPool2d(Module):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.ceil_mode = ceil_mode
+
+    def forward(self, x):
+        return x.max_pool2d(self.kernel_size, stride=self.stride, padding=self.padding,
+                            ceil_mode=self.ceil_mode)
 
 
 class ReLU(Module):
@@ -288,6 +431,82 @@ class LayerNorm(Module):
             x, self._params["weight"], self._params["bias"], eps=self.eps,
             dims=len(self.normalized_shape),
         )
+
+
+class _BatchNorm(Module):
+    """Batch normalization over the channel axis 1 (module.py:893-923).
+    Training normalizes by the batch's private mean and variance (inv_sqrt);
+    eval by the public running statistics: (x - running_mean) times the
+    public 1 / sqrt(running_var + eps), then the weight and bias, private
+    once encrypted. The public statistics enter as host constants, copied
+    to the device once."""
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.1):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.momentum = momentum
+        self.register_param("weight", torch.ones((num_features,), dtype=torch.float64))
+        self.register_param("bias", torch.zeros((num_features,), dtype=torch.float64))
+        self.register_buffer("running_mean", torch.zeros((num_features,), dtype=torch.float64))
+        self.register_buffer("running_var", torch.ones((num_features,), dtype=torch.float64))
+
+    def forward(self, x):
+        shape = [1] * x.dim()
+        shape[1] = self.num_features
+        w = _channel_view(self._params["weight"], shape)
+        b = _channel_view(self._params["bias"], shape)
+        if self.training:
+            axes = tuple(i for i in range(x.dim()) if i != 1)
+            mean = x.mean(axis=axes, keepdim=True)
+            variance = x.var(axis=axes, keepdim=True)
+            return (x - mean) * (variance + self.eps).inv_sqrt() * w + b
+        rm = self.running_mean.detach().cpu().numpy().reshape(shape)
+        inv = 1.0 / (self.running_var.detach().cpu().numpy().reshape(shape) + self.eps) ** 0.5
+        return (x - rm) * inv * w + b
+
+
+class BatchNorm1d(_BatchNorm):
+    pass
+
+
+class BatchNorm2d(_BatchNorm):
+    pass
+
+
+class BatchNorm3d(_BatchNorm):
+    pass
+
+
+class GroupNorm(Module):
+    """Group normalization over (C/G, spatial) slices (module.py:926-981):
+    each group normalized by its private mean and variance (inv_sqrt),
+    then the per-channel affine."""
+
+    def __init__(self, num_groups, num_channels, eps=1e-5, affine=True):
+        super().__init__()
+        assert num_channels % num_groups == 0, "num_channels must be divisible by num_groups"
+        self.num_groups = num_groups
+        self.num_channels = num_channels
+        self.eps = eps
+        self.affine = affine
+        if affine:
+            self.register_param("weight", torch.ones((num_channels,), dtype=torch.float64))
+            self.register_param("bias", torch.zeros((num_channels,), dtype=torch.float64))
+
+    def forward(self, x):
+        shape = tuple(x.shape)
+        n, c, spatial = shape[0], shape[1], shape[2:]
+        g = self.num_groups
+        grouped = x.reshape(n, g, (c // g) * math.prod(spatial) or c // g)
+        mean = grouped.mean(axis=-1, keepdim=True)
+        variance = grouped.var(axis=-1, keepdim=True)
+        out = ((grouped - mean) * (variance + self.eps).inv_sqrt()).reshape(*shape)
+        if self.affine:
+            bshape = (1, c) + (1,) * len(spatial)
+            out = out * _channel_view(self._params["weight"], bshape) + _channel_view(
+                self._params["bias"], bshape)
+        return out
 
 
 class Embedding(Module):

@@ -23,6 +23,7 @@ below 2^31 (K < 2^17), far inside float64's 2^53.
 from __future__ import annotations
 
 import contextlib
+import math
 import numbers
 from collections import OrderedDict
 
@@ -299,3 +300,132 @@ def matmul_acc(pairs) -> torch.Tensor:
     for a, b in pairs[1:]:
         out = out + matmul(a, b)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Convolutions: im2col columns through the ring matmul
+# ---------------------------------------------------------------------------
+#
+# The JAX package convolves int8 limb planes with lax.conv_general_dilated
+# (``ring.py:368-489``). Here a convolution is a product: the weight
+# (O, C/g, *k) becomes g matrices (O/g, C/g * prod(k)) and the input's
+# windows a column matrix (C/g * prod(k), prod(out)) per group, so that
+# ``matmul`` (the ring-mm kernel on CUDA) computes every output channel at
+# every position, already in NC(H)W order. The columns are built from
+# ``Tensor.unfold`` views of the padded input and copied once, contiguous;
+# a 1 x 1 convolution at stride 1 without padding reads the input in place.
+# No randomness enters, so the result equals the JAX package's mod 2^64.
+# Leading dims beyond (N, C, *spatial) of the input and (O, C/g, *k) of the
+# weight are batch dims and broadcast, as a party axis does.
+
+def _tuple(v, n: int):
+    return tuple(v) if isinstance(v, (tuple, list)) else (int(v),) * n
+
+
+def _columns(x, k, stride, padding, dilation, groups):
+    """x (..., C, *s) -> (columns (..., g, C/g * prod(k), prod(out)), out)."""
+    nd = len(k)
+    C = x.shape[-nd - 1]
+    if any(padding):
+        pads = []
+        for p in reversed(padding):
+            pads += [p, p]
+        x = torch.nn.functional.pad(x, pads)
+    if all(kk == 1 for kk in k):
+        x = x[(Ellipsis,) + tuple(slice(None, None, s) for s in stride)]
+        out = tuple(x.shape[-nd:])
+        return x.reshape(x.shape[:-nd - 1] + (groups, C // groups, math.prod(out))), out
+    win, base = x, x.dim() - nd
+    for i in range(nd):  # a window axis per spatial dim, appended last
+        win = win.unfold(base + i, dilation[i] * (k[i] - 1) + 1, stride[i])
+    if any(d > 1 for d in dilation):
+        win = win[(Ellipsis,) + tuple(slice(None, None, d) for d in dilation)]
+    out = tuple(win.shape[-2 * nd:-nd])
+    batch = win.shape[:-2 * nd - 1]
+    # (..., C, *out, *k) -> (..., C, *k, *out)
+    lead = len(batch) + 1
+    perm = tuple(range(lead)) + tuple(lead + nd + i for i in range(nd)) + tuple(
+        lead + i for i in range(nd))
+    cols = win.permute(perm).reshape(batch + (groups, C // groups * math.prod(k), math.prod(out)))
+    return cols, out
+
+
+def _conv_pair(x, w, nd, stride=1, padding=0, dilation=1, groups=1):
+    """(weight matrices, columns, output shape) of one ``convNd(x, w)``."""
+    k = tuple(w.shape[-nd:])
+    stride, padding, dilation = (_tuple(v, nd) for v in (stride, padding, dilation))
+    cols, out = _columns(x, k, stride, padding, dilation, groups)
+    O = w.shape[-nd - 2]
+    mats = w.reshape(w.shape[:-nd - 2] + (groups, O // groups, -1))
+    batch = torch.broadcast_shapes(cols.shape[:-3], mats.shape[:-3])
+    return mats, cols, tuple(batch) + (O,) + out
+
+
+def _transpose_input(x, w, nd, stride=1, padding=0, output_padding=0, dilation=1, groups=1):
+    """conv_transpose as a convolution (``ring.py:417-440``): x dilated by
+    the stride, padded by d (k - 1) - p (plus the output padding at the
+    end; a negative pad crops), against the weight's spatially flipped
+    (O, I) transpose at stride 1."""
+    if groups != 1:
+        raise NotImplementedError("grouped conv_transpose not implemented")
+    stride, padding, output_padding, dilation = (
+        _tuple(v, nd) for v in (stride, padding, output_padding, dilation))
+    k = tuple(w.shape[-nd:])
+    if any(s > 1 for s in stride):
+        size = tuple((n - 1) * s + 1 for n, s in zip(x.shape[-nd:], stride))
+        spread = x.new_zeros(x.shape[:-nd] + size)
+        spread[(Ellipsis,) + tuple(slice(None, None, s) for s in stride)] = x
+        x = spread
+    pads = []
+    for i in reversed(range(nd)):
+        lo = dilation[i] * (k[i] - 1) - padding[i]
+        pads += [lo, lo + output_padding[i]]
+    x = torch.nn.functional.pad(x, pads)
+    wf = w.flip(tuple(range(-nd, 0))).transpose(-nd - 2, -nd - 1)
+    return x, wf, dict(dilation=dilation)
+
+
+def _conv_pairs(op, pairs, kwargs):
+    nd = 2 if op.endswith("2d") else 1
+    out = []
+    for x, w in pairs:
+        kw = dict(kwargs)
+        if op.startswith("conv_transpose"):
+            x, w, kw = _transpose_input(x, w, nd, **kw)
+        out.append(_conv_pair(x, w, nd, **kw))
+    return out
+
+
+def conv_acc(op, pairs, **kwargs) -> torch.Tensor:
+    """sum_p op(x_p, w_p) mod 2^64 for ``op`` one of conv1d, conv2d,
+    conv_transpose1d and conv_transpose2d under the same keyword arguments:
+    one ``matmul_acc`` of the pairs' weight matrices and columns (one
+    ring-mm launch on CUDA, each pair's columns read in place)."""
+    made = _conv_pairs(op, pairs, kwargs)
+    shape = torch.broadcast_shapes(*[s for _, _, s in made])
+    prod = matmul_acc([(w, c) for w, c, _ in made])
+    return prod.reshape(shape)
+
+
+def conv2d(x, w, stride=1, padding=0, dilation=1, groups=1):
+    """Ring conv2d, NCHW x OIHW, with torch.conv2d's semantics."""
+    return conv_acc("conv2d", [(x, w)], stride=stride, padding=padding, dilation=dilation,
+                    groups=groups)
+
+
+def conv1d(x, w, stride=1, padding=0, dilation=1, groups=1):
+    """Ring conv1d, NCL x OIL."""
+    return conv_acc("conv1d", [(x, w)], stride=stride, padding=padding, dilation=dilation,
+                    groups=groups)
+
+
+def conv_transpose2d(x, w, stride=1, padding=0, output_padding=0, dilation=1, groups=1):
+    """Ring conv_transpose2d with torch's semantics (IOHW weights)."""
+    return conv_acc("conv_transpose2d", [(x, w)], stride=stride, padding=padding,
+                    output_padding=output_padding, dilation=dilation, groups=groups)
+
+
+def conv_transpose1d(x, w, stride=1, padding=0, output_padding=0, dilation=1, groups=1):
+    """Ring conv_transpose1d (IOL weights)."""
+    return conv_acc("conv_transpose1d", [(x, w)], stride=stride, padding=padding,
+                    output_padding=output_padding, dilation=dilation, groups=groups)

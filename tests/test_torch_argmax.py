@@ -124,7 +124,8 @@ def _scan_step_counts(shape):
     return s["rounds"], s["bytes"], s["calls"]
 
 
-@pytest.mark.parametrize("method", ["pairwise", "log_reduction", "scan_reduction"])
+@pytest.mark.parametrize("method", ["pairwise", "log_reduction", "scan_reduction",
+                                    "double_log_reduction", "accelerated_cascade"])
 @pytest.mark.parametrize("op", sorted(OPS))
 def test_argmax_argmin_min_by_method_like_curl_tpu(op, method):
     fn, plain, tol = OPS[op]
@@ -160,12 +161,15 @@ def test_argmax_indices_ties_and_all_elements(method):
 
 
 def test_later_max_methods_raise():
+    """The two methods that raised until their port (ROADMAP A10b) now run:
+    each gives the argmax one-hot, and the max of every element."""
     ct.init(world_size=2, seed=0, device="cpu")
     x = ct.cryptensor(X)
     for method in ("double_log_reduction", "accelerated_cascade"):
         with cfg.temp_override({"functions.max_method": method}):
-            with pytest.raises(NotImplementedError, match="A10"):
-                x.argmax(dim=-1)
+            np.testing.assert_array_equal(x.argmax(dim=-1).get_plain_text(),
+                                          np.eye(X.shape[1])[X.argmax(-1)])
+            np.testing.assert_allclose(x.max().get_plain_text(), X.max(), atol=2.0 ** -15)
 
 
 # -- the masked softmax and causal attention -----------------------------------
