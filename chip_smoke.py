@@ -9,8 +9,10 @@ graph; BertLarge at full width; the repo's bert-tiny-qnli checkpoint
 classifying 8 rows privately; bench.py's offline/online split
 (``compile_parties_cached``) over the compressed GPT-2 and the standalone
 dealer; private ResNet-18 (eager and captured) and ResNet-50 inference at
-224 x 224; then the three compressed forwards captured as CUDA graphs by
-``compile_parties``.
+224 x 224; private training of examples/mpc_cifar.py's LeNet (autograd,
+CrossEntropyLoss, SGD), eagerly and as a training step captured by
+``compile_parties``; then the three compressed forwards captured as CUDA
+graphs by ``compile_parties``.
 
     python3 chip_smoke.py
 
@@ -169,9 +171,32 @@ without the final line):
               the eager forward at its keys and counter, equal CommStats and
               launches, the logits of two seeds within the bound. It runs
               after phase 10, so that phase 5 holds its launch signatures
+  12. train   examples/mpc_cifar.py's training path at full width: LeNet
+              (conv 3->6 5x5, ReLU, 2x2 max pool, conv 6->16 5x5, ReLU, 2x2
+              max pool, fc 400->120->84->10) on 64 x 3 x 32 x 32 inputs
+              ~ N(0, 1) with one-hot labels from numpy seeds, torch's
+              default init from a numpy seed, encrypted by party 0,
+              CrossEntropyLoss, SGD at lr 0.01, under bench.py's kernel
+              configuration. The planted fault first (conv2's input
+              detached: conv1 gets no gradient), then 3 eager steps
+              (zero_grad, forward, loss, backward, step), the first
+              recording its launch signatures (for phase 5) and counted;
+              the step through compile_parties at CAPTURE_SEED, its
+              parameters fed back at 3 fresh seeds, then more replays timed;
+              the step eagerly at the capture's keys and counter. Holds:
+              rounds the CPU count; step 1's gradient of every parameter,
+              each step's loss, and the parameters after the eager and the
+              captured steps against the float64 SGD trajectory under
+              bounds fixed from CPU runs; the planted fault above them; the
+              capture bit-identical to the eager step, with its CommStats
+              and launches. Logs latency eager and replayed, images/s,
+              bytes, launches, device busy share, peak and graph memory.
+              It runs after phase 11, so that phase 5 holds the backward's
+              launch signatures
   5. path     every launch signature (shapes, strides, op) that any of the
-              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9, 10 and 11 passed to ring_mm, philox,
-              fused_mul, ltz, max_step and seed_expand (expand and open), on
+              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9, 10, 11 and 12
+              passed to ring_mm, philox, fused_mul, ltz, max_step and
+              seed_expand (expand and open), on
               fresh operands of the same layout: bit for bit against plain,
               timed with the L2 cache flushed before each call, and summed
               over each path's launches into each kernel's milliseconds a
@@ -201,8 +226,8 @@ plain time and bound of one phase 4c forward, the main path of the slices
 that ported the kernels, or for the 3-pair ring_mm_acc entry of phase 7's
 generation; under ``paths`` the same for each phase's run, phase 10's fill
 and online as "cached fill" and "cached online", phase 11's as "resnet18"
-and "resnet50", and under ``captured`` the launches of each phase 6, 7, 10
-and 11 capture), then the
+and "resnet50", phase 12's as "train", and under ``captured`` the launches
+of each phase 6, 7, 10, 11 and 12 capture), then the
 card's name and power limit, then ``{"ok": true, "device": {...}}`` as the
 last line.
 """
@@ -2982,6 +3007,434 @@ def run_captured_resnet(name, model, xe, ref, res):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: private training (autograd, the loss, SGD, a captured step)
+# ---------------------------------------------------------------------------
+
+# examples/mpc_cifar.py's training path at full width: LeNet on 3 x 32 x 32,
+# 10 classes, batch 64, CrossEntropyLoss on public one-hot labels, SGD at
+# lr 0.01 (its line 70)
+LENET_BATCH = 64
+LENET_CLASSES = 10
+LENET_LR = 0.01
+LENET_WEIGHT_SEED = 1213
+LENET_DATA_SEED = 1214
+LENET_STEPS = 3
+# the captured step's fed-back replays, each at a fresh seed after
+# CAPTURE_SEED's
+TRAIN_REPLAYS = 3
+TRAIN_PATH = "train"
+# The bounds, fixed from CPU runs of the port at full width before the
+# phase's first card run (scripts/torch_train_bound.py at session seeds 11,
+# 1 and 2, PERF.md §6), each 1.5 times the worst of the three readings: the
+# relative L2 error against float64 of step 1's gradient of each parameter
+# (conv1's read 0.35-0.36 for the weight and 0.39-0.63 for the bias, conv2's
+# 0.12-0.20, the linears' 0.03-0.05: gradients a batch of 64 divides down
+# to a few units of the 16-bit fixed point), of the parameters after the
+# eager steps and after the captured ones (at most 0.00106), and the
+# absolute error of each step's loss (at most 0.00064). The planted fault
+# reads 1.0 for conv1's weight and bias. The rounds of one step (forward,
+# backward and SGD) are the CPU count.
+LENET_GRAD_REL_L2 = {"0.weight": 0.55, "0.bias": 0.95, "3.weight": 0.22, "3.bias": 0.31,
+                     "7.weight": 0.08, "7.bias": 0.08, "9.weight": 0.05, "9.bias": 0.06,
+                     "11.weight": 0.06, "11.bias": 0.06}
+LENET_PARAM_REL_L2 = 0.0016
+LENET_LOSS_ATOL = 0.001
+LENET_ROUNDS = 197
+# kernels a LeNet step does not launch: no compressed weight, no masked
+# operand, log_softmax's exp over 64 x 10 below the squaring chain's least
+# size, and windows of 4 and 16 lanes (no fold)
+LENET_UNLAUNCHED = ("seed_expand", "open", "ring_mm_acc 3 pairs", "fused_mul square chain",
+                    "max_step fold")
+
+
+def build_lenet(nn):
+    """examples/mpc_cifar.py's ``build_lenet`` (its lines 22-39), in either
+    package's ``nn``: conv 3->6 5x5, ReLU, 2x2 max pool, conv 6->16 5x5,
+    ReLU, 2x2 max pool, fc 400->120->84->10 with ReLUs between."""
+    return nn.Sequential(
+        nn.Conv2d(3, 6, 5), nn.ReLU(), nn.MaxPool2d(2),
+        nn.Conv2d(6, 16, 5), nn.ReLU(), nn.MaxPool2d(2),
+        nn.Flatten(),
+        nn.Linear(16 * 5 * 5, 120), nn.ReLU(),
+        nn.Linear(120, 84), nn.ReLU(),
+        nn.Linear(84, LENET_CLASSES),
+    )
+
+
+# (state dict key, shape, fan_in) in build_lenet's order
+LENET_PARAMS = tuple(
+    (f"{i}.{kind}", shape if kind == "weight" else shape[:1], math.prod(shape[1:]))
+    for i, shape in ((0, (6, 3, 5, 5)), (3, (16, 6, 5, 5)), (7, (120, 400)), (9, (84, 120)),
+                     (11, (10, 84)))
+    for kind in ("weight", "bias"))
+
+
+def lenet_state(seed=LENET_WEIGHT_SEED):
+    """A numpy state dict of LeNet: every weight and bias uniform in
+    +-1/sqrt(fan_in), torch's default init (kaiming-uniform at a = sqrt(5)),
+    drawn in key order from numpy ``seed``."""
+    rng = np.random.default_rng(seed)
+    return {key: rng.uniform(-1, 1, shape) / math.sqrt(fan_in)
+            for key, shape, fan_in in LENET_PARAMS}
+
+
+def lenet_batch(batch=LENET_BATCH, seed=LENET_DATA_SEED):
+    """(input (batch, 3, 32, 32) ~ N(0, 1), one-hot labels (batch, 10)) from
+    numpy ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, 3, 32, 32))
+    return x, np.eye(LENET_CLASSES)[rng.integers(0, LENET_CLASSES, batch)]
+
+
+def plain_lenet_trajectory(sd, x, labels, dev, steps, lr=LENET_LR):
+    """The float64 SGD trajectory of LeNet on ``dev`` from state dict
+    ``sd``, the same batch each step: (each step's loss, step 1's gradient
+    of each parameter, the parameters after each step), numpy."""
+    F = torch.nn.functional
+    p = {k: torch.tensor(np.asarray(v), dtype=torch.float64, device=dev, requires_grad=True)
+         for k, v in sd.items()}
+    xt = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    yt = torch.as_tensor(labels, dtype=torch.float64, device=dev)
+    losses, grads, params = [], None, []
+    for _ in range(steps):
+        h = F.max_pool2d(F.relu(F.conv2d(xt, p["0.weight"], p["0.bias"])), 2)
+        h = F.max_pool2d(F.relu(F.conv2d(h, p["3.weight"], p["3.bias"])), 2).flatten(1)
+        h = F.relu(F.linear(h, p["7.weight"], p["7.bias"]))
+        h = F.relu(F.linear(h, p["9.weight"], p["9.bias"]))
+        logits = F.linear(h, p["11.weight"], p["11.bias"])
+        loss = -(yt * F.log_softmax(logits, -1)).sum() / xt.shape[0]
+        g = torch.autograd.grad(loss, list(p.values()))
+        losses.append(float(loss.detach()))
+        if grads is None:
+            grads = {k: gi.cpu().numpy() for k, gi in zip(p, g)}
+        with torch.no_grad():
+            p = {k: (v - lr * gi).requires_grad_() for (k, v), gi in zip(p.items(), g)}
+        params.append({k: v.detach().cpu().numpy() for k, v in p.items()})
+    return losses, grads, params
+
+
+def lenet_model(ct, sd):
+    """The port's LeNet with state dict ``sd``, encrypted by party 0, its
+    parameters autograd leaves."""
+    from curl_tpu_torch.nn.module import skip_init
+
+    with skip_init():
+        model = build_lenet(ct.nn)
+    model.load_state_dict(sd)
+    return model.encrypt(src=0, requires_grad=True)
+
+
+def lenet_forward(model, xe, detach_before=None):
+    """The private logits through the model's modules in order; the input
+    of module ``detach_before`` detached (the planted fault: no gradient
+    flows back through it)."""
+    out = xe
+    for i, m in enumerate(model):
+        if i == detach_before:
+            out = out.detach()
+        out = m(out)
+    return out
+
+
+def lenet_step(ct, model, opt, xe, labels, detach_before=None):
+    """One eager SGD step, examples/mpc_cifar.py:73-79: zero_grad, the
+    forward, the loss, backward, step. Returns the loss (encrypted)."""
+    opt.zero_grad()
+    loss = ct.nn.CrossEntropyLoss()(lenet_forward(model, xe, detach_before), labels)
+    loss.backward()
+    opt.step()
+    return loss
+
+
+def lenet_train_fn(ct, model, lr=LENET_LR):
+    """The training step as compile_parties captures it (the shape of
+    tests/test_compiled.py:30-63): ``(params, x, labels) -> (the new
+    params, the loss)``, the parameters bound to the model and made
+    autograd leaves, SGD's in-place swap on them, the model's
+    ``params_pytree`` returned."""
+
+    def step(p, xe, labels):
+        model.bind_params(p)
+        params = list(model.parameters())
+        for t in params:
+            t.requires_grad = True
+        opt = ct.optim.SGD(params, lr=lr)
+        loss = lenet_step(ct, model, opt, xe, labels)
+        return model.params_pytree(), loss
+
+    return step
+
+
+def lenet_grads(model):
+    """Each parameter's decoded gradient (zeros where it has none)."""
+    return {k: (p.grad.get_plain_text() if p.grad is not None else np.zeros(p.shape))
+            for k, p in model.named_parameters()}
+
+
+def lenet_params(tree):
+    """A LeNet params pytree's parameters, decoded, by state dict key."""
+    return {f"{i}.{k}": t.get_plain_text() for i, sub in tree.items() if i != "__params__"
+            for k, t in sub["__params__"].items()}
+
+
+def rel_l2_by_key(got, ref):
+    """Each parameter's relative L2 error, by state dict key."""
+    return {k: rel_l2(np.asarray(got[k]), ref[k]) for k in ref}
+
+
+def train_readings(ct, dev, batch=LENET_BATCH, steps=LENET_STEPS, replays=TRAIN_REPLAYS,
+                   config=None):
+    """Phase 12's numbers on any device (``scripts/torch_train_bound.py``
+    runs it on the CPU): the planted fault, ``steps`` eager steps from
+    lenet_state at ``batch``, then the step through compile_parties at
+    CAPTURE_SEED and ``replays`` replays fed back, each against the float64
+    trajectory."""
+    x, labels = lenet_batch(batch)
+    sd = lenet_state()
+    total = steps + 1 + replays
+    losses64, grads64, params64 = plain_lenet_trajectory(sd, x, labels, dev, total)
+    model = lenet_model(ct, sd)
+    opt = ct.optim.SGD(list(model.parameters()), lr=LENET_LR)
+    xe = ct.cryptensor(x)
+    yt = torch.as_tensor(labels, dtype=torch.float64, device=dev)
+    res = {"losses64": losses64}
+    with ct.cfg.temp_override(config or {}):
+        opt.zero_grad()
+        loss = ct.nn.CrossEntropyLoss()(lenet_forward(model, xe, detach_before=3), yt)
+        loss.backward()
+        res["fault"] = rel_l2_by_key(lenet_grads(model), grads64)
+        losses = []
+        for i in range(steps):
+            ct.reset_communication_stats()
+            losses.append(float(lenet_step(ct, model, opt, xe, yt).get_plain_text()))
+            if i == 0:
+                res["stats"] = ct.get_communication_stats()
+                res["grads"] = rel_l2_by_key(lenet_grads(model), grads64)
+        res["losses"] = losses
+        res["params"] = rel_l2_by_key(
+            {k: p.get_plain_text() for k, p in model.named_parameters()}, params64[steps - 1])
+        step = ct.compile_parties(lenet_train_fn(ct, model), 2)
+        p, loss = step(CAPTURE_SEED, model.params_pytree(), xe, yt)
+        captured = [float(loss.get_plain_text())]
+        for i in range(replays):
+            p, loss = step(CAPTURE_SEED + 1 + i, p, xe, yt)
+            captured.append(float(loss.get_plain_text()))
+        res["captured_losses"] = captured
+        res["captured_params"] = rel_l2_by_key(lenet_params(p), params64[-1])
+        res["capture_stats"] = step.stats
+    res["loss_err"] = max(abs(a - b) for a, b in zip(losses + captured, losses64))
+    return res
+
+
+def run_train(dev):
+    """Phase 12: examples/mpc_cifar.py's training path at full width under
+    bench.py's kernel configuration, 2 parties, session seed 11. The planted
+    fault first (conv2's input detached: conv1 gets no gradient), then
+    LENET_STEPS eager SGD steps, the first recording every launch signature
+    (for phase 5) and counted (launches, CommStats), two more timed steps
+    and one profiled (their updates undone); then the step through
+    compile_parties at CAPTURE_SEED, fed back TRAIN_REPLAYS times at fresh
+    seeds, more replays timed and one profiled, and the step run eagerly at
+    the capture's keys and counter. Every gradient, loss and the parameters
+    against the float64 trajectory under the bounds fixed from CPU runs."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch import random as crandom
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.parallel import runner
+
+    ct.init(world_size=2, seed=SEED)
+    t0 = time.perf_counter()
+    x, labels = lenet_batch()
+    sd = lenet_state()
+    losses64, grads64, params64 = plain_lenet_trajectory(
+        sd, x, labels, dev, LENET_STEPS + 1 + TRAIN_REPLAYS)
+    model = lenet_model(ct, sd)
+    params = list(model.parameters())
+    opt = ct.optim.SGD(params, lr=LENET_LR)
+    xe = ct.cryptensor(x)
+    yt = torch.as_tensor(labels, dtype=torch.float64, device=dev)
+    n_params = sum(v.size for v in sd.values())
+    log(f"[train] LeNet, {n_params} parameters from numpy seed {LENET_WEIGHT_SEED}, batch "
+        f"{LENET_BATCH} x 3 x 32 x 32, {LENET_CLASSES} classes, SGD lr {LENET_LR}; built, "
+        f"encrypted and the float64 trajectory in {time.perf_counter() - t0:.1f} s")
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = lenet_step(ct, model, opt, xe, yt)
+        torch.cuda.synchronize()
+        return loss, time.perf_counter() - t
+
+    with cfg.temp_override(BENCH_CONFIG):
+        opt.zero_grad()
+        ct.nn.CrossEntropyLoss()(lenet_forward(model, xe, detach_before=3), yt).backward()
+        fault = rel_l2_by_key(lenet_grads(model), grads64)
+        reset_launches()
+        ct.reset_communication_stats()
+        with recording_launches() as calls:
+            loss, first_s = timed_step()
+        launches, by_op, _ = read_launches()
+        stats = ct.get_communication_stats()
+        grads = rel_l2_by_key(lenet_grads(model), grads64)
+        losses, lat = [float(loss.get_plain_text())], []
+        for i in range(1, LENET_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            loss, secs = timed_step()
+            if i == 1:
+                peak = torch.cuda.max_memory_allocated()
+            lat.append(secs)
+            losses.append(float(loss.get_plain_text()))
+        eager_params = rel_l2_by_key({k: p.get_plain_text() for k, p in model.named_parameters()},
+                                     params64[LENET_STEPS - 1])
+        # more steps, timed and profiled; their updates undone
+        saved = [p._tensor for p in params]
+        lat += [timed_step()[1] for _ in range(2)]
+        best = min(lat)
+        busy = profile_forward(None, None, best, tag="profile train", top=8,
+                               call=lambda: lenet_step(ct, model, opt, xe, yt))
+        for p, t in zip(params, saved):
+            p._tensor, p.grad = t, None
+
+        # the step captured by compile_parties and fed back
+        train_fn = lenet_train_fn(ct, model)
+        p0 = model.params_pytree()
+        step = ct.compile_parties(train_fn, 2)
+        reset_launches()
+        ct.reset_communication_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cap_held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        first = step(CAPTURE_SEED, p0, xe, yt)
+        torch.cuda.synchronize()
+        cap_first_s = time.perf_counter() - t0
+        cap_launches, cap_by_op, _ = read_launches()
+        cap_stats = ct.get_communication_stats()
+        graph = torch.cuda.memory_allocated() - cap_held
+        p, loss = first
+        cap_losses = [float(loss.get_plain_text())]
+        for i in range(TRAIN_REPLAYS):
+            p, loss = step(CAPTURE_SEED + 1 + i, p, xe, yt)
+            cap_losses.append(float(loss.get_plain_text()))
+        cap_params = rel_l2_by_key(lenet_params(p), params64[-1])
+        fed = ct.get_communication_stats()  # the capture anew counted once more
+        replay_lat = []
+        for i in range(REPLAYS):  # timed: each from the same parameters
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(CAPTURE_SEED + 1 + TRAIN_REPLAYS + i, p, xe, yt)
+            torch.cuda.synchronize()
+            replay_lat.append(time.perf_counter() - t0)
+        after = ct.get_communication_stats()
+        cap_peak = torch.cuda.max_memory_allocated() - cap_held
+        replay_best = min(replay_lat)
+        replay_busy = profile_forward(
+            None, None, replay_best, tag="profile, captured train", top=6,
+            call=lambda: step(CAPTURE_SEED + 1 + TRAIN_REPLAYS + REPLAYS, p, xe, yt))
+
+        # the step eagerly at the capture's keys and draw counter
+        leaves = []
+        fresh = runner._build(runner._flatten((p0, xe, yt), leaves), leaves, public=True)
+        reset_launches()
+        ct.reset_communication_stats()
+        resume = crandom.counter()
+        crandom.set_counter(step.counter)
+        with ct.parallel.mpc_context(crandom.make_party_keys(CAPTURE_SEED, 2), 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager = train_fn(*fresh)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+        crandom.set_counter(resume)
+        eager_launches, eager_by_op, _ = read_launches()
+        eager_stats = ct.get_communication_stats()
+
+    smi = nvidia_smi_line()
+    loss_err = max(abs(a - b) for a, b in zip(losses + cap_losses, losses64))
+    log(f"[train] one step (zero_grad, forward, loss, backward, SGD): {stats['rounds']} rounds "
+        f"(the CPU count {LENET_ROUNDS}), {stats['bytes']} bytes per party; launches {launches}; "
+        f"fused_mul and max_step by op {by_op}")
+    log(f"[train] eager step latencies {', '.join(f'{v:.4f}' for v in lat)} s (the first, "
+        f"recorded, {first_s:.4f} s): best {best:.4f} s, {LENET_BATCH / best:.1f} images/s; "
+        f"peak device memory {(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+        f"held ({smi})")
+    log(f"[train] captured: first call {cap_first_s:.2f} s (warm-up {step.warmup_s:.2f} s, "
+        f"capture {step.capture_s:.2f} s), {step.captures} captures (the fed-back parameters "
+        f"at new addresses once); replay latencies {', '.join(f'{v:.4f}' for v in replay_lat)} "
+        f"s: best {replay_best:.4f} s, {LENET_BATCH / replay_best:.1f} images/s; the eager step "
+        f"beside it {eager_s:.4f} s; the graph holds {graph / 2**30:.3f} GiB, peak "
+        f"{cap_peak / 2**30:.3f} GiB above the {cap_held / 2**30:.3f} GiB held ({smi})")
+    log(f"[train] the capture's launches {cap_launches}; by op {cap_by_op}")
+    log("[train] step 1's gradients against float64, relative L2 (bound): " + ", ".join(
+        f"{k} {v:.4f} ({LENET_GRAD_REL_L2[k]})" for k, v in grads.items()))
+    log("[train] planted fault (conv2's input detached): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in fault.items()))
+    log(f"[train] losses {', '.join(f'{v:.5f}' for v in losses)} eager, "
+        f"{', '.join(f'{v:.5f}' for v in cap_losses)} captured and fed back; float64 "
+        f"{', '.join(f'{v:.5f}' for v in losses64)}: worst error {loss_err:.6f} (bound "
+        f"{LENET_LOSS_ATOL})")
+    log(f"[train] parameters after {LENET_STEPS} eager steps, worst relative L2 "
+        f"{max(eager_params.values()):.6f}; after {len(losses64)} steps (the captured fed back) "
+        f"{max(cap_params.values()):.6f} (bound {LENET_PARAM_REL_L2})")
+    same_out = torch.equal(first[1].share, eager[1].share) and all(
+        torch.equal(a, b) for a, b in zip(runner_shares(first[0]), runner_shares(eager[0])))
+    checks = {
+        f"rounds of a step equal the CPU count {LENET_ROUNDS}": stats["rounds"] == LENET_ROUNDS,
+        "every gradient of step 1 within its bound": all(
+            v <= LENET_GRAD_REL_L2[k] for k, v in grads.items()),
+        "the planted fault reads above the bound": any(
+            v > LENET_GRAD_REL_L2[k] for k, v in fault.items()),
+        f"every loss within {LENET_LOSS_ATOL} of float64's": loss_err <= LENET_LOSS_ATOL
+            and all(np.isfinite(losses + cap_losses)),
+        f"the parameters within relative L2 {LENET_PARAM_REL_L2} after the eager steps and "
+        "after the captured ones": max(list(eager_params.values()) + list(cap_params.values()))
+            <= LENET_PARAM_REL_L2,
+        "the captured step bit-identical to the eager step at its keys and counter": same_out,
+        "the capture's CommStats equal the eager step's and step 1's, the capture anew's "
+        "the same again; replays count none":
+            (cap_stats["rounds"], cap_stats["bytes"]) == (eager_stats["rounds"],
+                                                          eager_stats["bytes"])
+            == (stats["rounds"], stats["bytes"])
+            and (fed["rounds"], fed["bytes"]) == (2 * stats["rounds"], 2 * stats["bytes"])
+            and after == fed,
+        "the capture launched every kernel the eager step launched, as often":
+            (cap_launches, cap_by_op) == (eager_launches, eager_by_op) == (launches, by_op),
+        "the fed-back parameters captured anew once": step.captures == 2,
+    }
+    missing = [k for k, n in launches.items() if n == 0 and k not in LENET_UNLAUNCHED]
+    missing += [c for c in unlaunched_chains(by_op) if c not in LENET_UNLAUNCHED]
+    checks["the step launched every kernel of the path"] = not missing
+    checks["recorded launches equal the counted ones"] = recorded_launches(calls) == (launches,
+                                                                                      by_op)
+    for name, ok in checks.items():
+        log(f"[train] {name}: {'held' if ok else 'FAILED'}")
+    failures = [f"train: {name}" for name, ok in checks.items() if not ok]
+    if missing:
+        failures.append(f"train launched no {missing}")
+    chains = {c: sum(n for t, n in cap_by_op.items() if is_tag(t))
+              for c, is_tag in CHAIN_TAGS.items()}
+    res = dict(calls=calls, launches=launches, by_op=by_op, stats=stats, best_s=best,
+               busy_ms=busy, peak=peak)
+    captured = dict(launches=cap_launches, chains=chains, best_s=replay_best, eager_s=eager_s,
+                    busy_ms=replay_busy, capture_s=step.capture_s, peak=cap_peak)
+    del model, opt, step, first, eager, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, captured, failures
+
+
+def runner_shares(tree):
+    """The share tensors of an output pytree, in order."""
+    from curl_tpu_torch.parallel import runner
+
+    leaves = []
+    runner._flatten(tree, leaves)
+    return leaves
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the forward captured as a CUDA graph (compile_parties)
 # ---------------------------------------------------------------------------
 
@@ -4109,6 +4562,13 @@ def run_paths(dev, gen):
             resnet_captured[name] = res["captured"]
         del res
     phase_done("phase 11")
+    # phase 12: LeNet training, eager and captured; before phase 5, which
+    # holds its launch signatures too
+    train, train_captured, train_failures = run_train(dev)
+    failures += train_failures
+    paths[TRAIN_PATH] = (train["calls"], train["launches"], train["by_op"])
+    del train
+    phase_done("phase 12")
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
@@ -4128,7 +4588,8 @@ def run_paths(dev, gen):
     # phase 6: the compressed GPT-2, GPT-Neo and GPT-Neo 2.7B forwards
     # through compile_parties, captured once and replayed; each model freed
     # after
-    captured = {GENERATE_PATH: generated["captured"], **cached.pop("captured"), **resnet_captured}
+    captured = {GENERATE_PATH: generated["captured"], **cached.pop("captured"), **resnet_captured,
+                TRAIN_PATH: train_captured}
     del generated
     for p, res in (("compressed", compressed), ("neo", neo), ("neo_large", neo_large)):
         captured[p], cap_failures = run_captured(p, res)

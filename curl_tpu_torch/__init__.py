@@ -19,6 +19,16 @@ PyTorch and hand-written CUDA kernels for one NVIDIA Hopper card:
     step = ct.compile_parties(apply_fn, 2)   # a captured CUDA graph
     out = step(seed, params, xe)              # fresh randomness per seed
 
+Training (define-by-run autograd over the shares, ``autograd.py`` and
+``gradients.py``):
+
+    model.encrypt(src=0, requires_grad=True)
+    opt = ct.optim.SGD(model.parameters(), lr=0.01)
+    opt.zero_grad()
+    loss = ct.nn.CrossEntropyLoss()(model(xe), labels)
+    loss.backward()
+    opt.step()
+
     online, fill = ct.compile_parties_cached(apply_fn, 2, 99, params, xe)
     cache = fill(97)                          # the offline phase: every tuple
     out = online(101, cache, params, xe)      # the online phase, served
@@ -41,11 +51,16 @@ from .encoder import FixedPointEncoder
 from .mpc import MPCTensor, get_default_provider  # noqa: F401
 from .mpc.ptype import ptype
 from . import functions  # noqa: F401  (installs ops on MPCTensor)
+from . import gradients as _gradients
+from .autograd import enable_grad, is_grad_enabled, no_grad  # noqa: F401
+
+_gradients.install()  # the autograd dispatch, over the ops functions installed
 from . import nn  # noqa: F401
 from . import models  # noqa: F401
 from .nn import module as _nn_module
 from . import parallel  # noqa: F401
 from .parallel import Public, compile_parties, compile_parties_cached, run_parties  # noqa: F401
+from . import optim  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -74,9 +89,36 @@ def init(world_size: int = 2, seed: int = 0, device=None):
     _nn_module.set_init_seed(seed)
 
 
-def cryptensor(value, src: int = 0, precision=None, ptype_=ptype.arithmetic) -> MPCTensor:
-    """Encrypt a plaintext held by party ``src``."""
-    return MPCTensor.encrypt(value, src=src, precision=precision, ptype=ptype_)
+def cryptensor(value, src: int = 0, precision=None, ptype_=ptype.arithmetic,
+               requires_grad: bool = False) -> MPCTensor:
+    """Encrypt a plaintext held by party ``src``; ``requires_grad`` marks
+    the result as an autograd leaf (curl_tpu/__init__.py:453-467)."""
+    out = MPCTensor.encrypt(value, src=src, precision=precision, ptype=ptype_)
+    if requires_grad:
+        out.requires_grad = True
+    return out
+
+
+def _sequence_op(name, tensors, dim):
+    """cat or stack of encrypted tensors, public ones encrypted first; on
+    the tape where grad mode is on and one requires grad
+    (curl_tpu/__init__.py:474-500)."""
+    from . import autograd
+
+    tensors = [t if isinstance(t, MPCTensor) else cryptensor(t) for t in tensors]
+    if autograd.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return autograd.apply_function(name, tensors, dim)
+    return getattr(MPCTensor, name)(tensors, axis=dim)
+
+
+def cat(tensors, dim=0) -> MPCTensor:
+    """Concatenate encrypted tensors along ``dim``."""
+    return _sequence_op("cat", tensors, dim)
+
+
+def stack(tensors, dim=0) -> MPCTensor:
+    """Stack encrypted tensors along a new ``dim``."""
+    return _sequence_op("stack", tensors, dim)
 
 
 def _sizes(sizes):

@@ -12,6 +12,8 @@ training (ROADMAP A13).
 
 from __future__ import annotations
 
+import torch
+
 from ..mpc.mpc import MPCTensor, _compare_bits
 
 
@@ -88,6 +90,64 @@ def max_pool2d(self, kernel_size, padding=0, stride=None, dilation=1,
     return max_vals
 
 
+def _window_positions(h, w, k, s, d, width, device):
+    """(h * w * k0 * k1,) int64 on ``device``: each window entry's flat
+    position in a (rows, ``width``) plane, windows in (i, j) order, entries
+    in (a, b) order."""
+    def ar(n, step):
+        return torch.arange(n, device=device) * step
+
+    rows = ar(h, s[0]).view(h, 1, 1, 1) + ar(k[0], d[0]).view(1, 1, -1, 1)
+    cols = ar(w, s[1]).view(1, w, 1, 1) + ar(k[1], d[1]).view(1, 1, 1, -1)
+    return (rows * width + cols).reshape(-1)
+
+
+def _max_pool2d_backward(self, indices, kernel_size, padding=None, stride=None,
+                         dilation=1, ceil_mode=False, output_size=None):
+    """The gradient ``self`` (N, C, h, w) of a max pool scattered through
+    its argmax one-hots ``indices`` (N, C, h, w, k0, k1) into the input's
+    positions (pooling.py:85-136): one private product by the one-hots,
+    then every window's entries added at their positions, windows that
+    overlap summed, in one indexed add of the shares (where the JAX
+    package adds window by window); the padding cut off."""
+    k = _pair(kernel_size)
+    p = (0, 0) if padding is None else _pair(padding)
+    s = k if stride is None else _pair(stride)
+    d = _pair(dilation)
+
+    assert self.dim() == 4, "Input to _max_pool2d_backward must have 4 dimensions"
+    assert indices.dim() == 6, "Indices input must have 6 dimensions"
+
+    kernels = self.view(tuple(self.size()) + (1, 1)) * indices
+
+    if output_size is None:
+        output_size = (self.size(0), self.size(1), s[0] * self.size(2) - 2 * p[0],
+                       s[1] * self.size(3) - 2 * p[1])
+    result_size = list(output_size)
+    result_size[-2] += 2 * p[0]
+    result_size[-1] += 2 * p[1]
+    if ceil_mode:
+        c0 = self.size(-1) * s[1] + (k[1] - 1) * d[1] - output_size[-1]
+        c1 = self.size(-2) * s[0] + (k[0] - 1) * d[0] - output_size[-2]
+        result_size[-2] += c0
+        result_size[-1] += c1
+
+    h, w = self.size(2), self.size(3)
+    kshare = kernels.share
+    P = kshare.shape[0]
+    lead = tuple(kshare.shape[1:3])
+    index = _window_positions(h, w, k, s, d, result_size[-1], kshare.device)
+    share = torch.zeros((P,) + lead + (result_size[-2] * result_size[-1],), dtype=kshare.dtype,
+                        device=kshare.device)
+    share.index_add_(3, index, kshare.reshape((P,) + lead + (-1,)))
+    share = share.view((P,) + lead + tuple(result_size[-2:]))
+
+    if ceil_mode:
+        share = share[..., : share.shape[-2] - c0, : share.shape[-1] - c1]
+    share = share[..., p[0]: share.shape[-2] - p[0], p[1]: share.shape[-1] - p[1]]
+    return MPCTensor(type(kernels._tensor)(share, kernels.encoder), self.ptype)
+
+
 def adaptive_avg_pool2d(self, output_size):
     """torch's adaptive average pooling, where its windows are uniform
     (pooling.py:146-153)."""
@@ -142,6 +202,7 @@ def _adaptive_pool2d_helper(inp, output_size, reduction="mean"):
 
 for _name, _fn in (
     ("max_pool2d", max_pool2d),
+    ("_max_pool2d_backward", _max_pool2d_backward),
     ("adaptive_avg_pool2d", adaptive_avg_pool2d),
     ("adaptive_max_pool2d", adaptive_max_pool2d),
 ):

@@ -84,11 +84,25 @@ def _unpack_lanes(word, width, meta, lane_bit):
 
 
 class MPCTensor:
-    __slots__ = ("_tensor", "ptype")
+    __slots__ = (
+        "_tensor",
+        "ptype",
+        # the autograd tape's fields (mpc.py:106-122): Python-side, set by
+        # ``autograd.apply_function`` and ``backward``, never part of a
+        # compiled runner's arguments
+        "requires_grad",
+        "grad",
+        "grad_fn",
+        "grad_output_index",
+        "grad_fn_outputs",
+    )
 
     def __init__(self, tensor, ptype=Ptype.arithmetic):
         self._tensor = tensor
         self.ptype = ptype
+        self.requires_grad = False
+        self.grad = None
+        self.grad_fn = None
 
     # -- constructors ------------------------------------------------------
     @classmethod
@@ -261,7 +275,10 @@ class MPCTensor:
         return self._wrap(self._tensor.neg())
 
     def div(self, y):
-        """Division by a public value."""
+        """Division (mpc.py:347): by a private divisor through its
+        reciprocal, by a public value in the encoding."""
+        if isinstance(y, MPCTensor):
+            return self.mul(y.reciprocal())
         return self._wrap(self._tensor.div(y))
 
     def divmod(self, y):
@@ -290,6 +307,15 @@ class MPCTensor:
 
     def pad(self, pad_width, value=0):
         return self._wrap(self._tensor.pad(pad_width, value=value))
+
+    def index_add(self, dim, index, tensor):
+        return self._wrap(self._tensor.index_add(dim, index, _unwrap(tensor)))
+
+    def scatter_add(self, dim, index, other):
+        return self._wrap(self._tensor.scatter_add(dim, index, _unwrap(other)))
+
+    def scatter(self, dim, index, src):
+        return self._wrap(self._tensor.scatter(dim, index, _unwrap(src)))
 
     # operators
     __add__ = add

@@ -314,6 +314,44 @@ class ArithmeticSharedTensor:
         )
         return self.with_share(padded + rank0(region, ndim=self.ndim))
 
+    # -- indexed writes (arithmetic.py:448-486): local, no communication ---
+    def _indexed_values(self, values):
+        """A private operand's shares, or a public one encoded and held
+        by party 0 (the others add 0)."""
+        if _is_public(values):
+            encoded = _encode(self.encoder, values)
+            if isinstance(encoded, int):
+                encoded = torch.full((), encoded, dtype=torch.int64, device=self.share.device)
+            return rank0(encoded, ndim=encoded.dim())
+        return values.share
+
+    def index_add(self, dim, index, tensor):
+        """Add ``tensor``'s entries at ``index`` along ``dim``."""
+        dim = dim % self.ndim
+        index = ring.constant(index, self.share.device).reshape(-1)
+        shape = list(self.share.shape)
+        shape[dim + 1] = index.numel()
+        values = self._indexed_values(tensor)
+        values = lift(values, len(shape) - 1).expand(shape)
+        return self.with_share(self.share.index_add(dim + 1, index, values))
+
+    def _scatter_args(self, dim, index, values):
+        index = ring.constant(index, self.share.device)
+        shape = (self.share.shape[0],) + tuple(index.shape)
+        values = lift(self._indexed_values(values), index.dim()).expand(shape)
+        return dim % self.ndim + 1, index.unsqueeze(0).expand(shape), values
+
+    def scatter_add(self, dim, index, other):
+        """Add ``other`` at the positions ``index`` names along ``dim``
+        (torch's scatter_add: every other dim by position)."""
+        d, index, values = self._scatter_args(dim, index, other)
+        return self.with_share(self.share.scatter_add(d, index, values))
+
+    def scatter(self, dim, index, src):
+        """Replace the entries ``index`` names along ``dim`` with ``src``."""
+        d, index, values = self._scatter_args(dim, index, src)
+        return self.with_share(self.share.scatter(d, index, values))
+
     @staticmethod
     def stack(tensors, axis=0):
         axis = axis + 1 if axis >= 0 else axis

@@ -29,6 +29,7 @@ import contextlib
 import math
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from .. import random as rng
@@ -111,8 +112,12 @@ class Module(torch.nn.Module):
                     if isinstance(p, torch.Tensor):
                         yield m, name
 
-    def encrypt(self, src: int = 0, seed_compress: bool = False):
-        """Share every plaintext parameter from party ``src``.
+    def encrypt(self, src: int = 0, seed_compress: bool = False, requires_grad: bool = False):
+        """Share every plaintext parameter from party ``src``;
+        ``requires_grad`` marks each as an autograd leaf. The JAX package
+        marks every encrypted parameter (module.py:121-127); the port leaves
+        an inference model's parameters off the tape unless asked, so that
+        a forward records nothing.
 
         ``seed_compress=True`` (2 parties, inference) keeps seed-compressed
         shares instead (module.py:107-152): each tensor is compressed under
@@ -128,7 +133,93 @@ class Module(torch.nn.Module):
                 )
             return self
         for m, name in self._plaintext_params():
-            m._params[name] = cryptensor(m._params[name], src=src)
+            m._params[name] = cryptensor(m._params[name], src=src, requires_grad=requires_grad)
+        return self
+
+    def decrypt(self):
+        """Every encrypted parameter revealed back into a float64 tensor
+        (module.py:154-160)."""
+        for m in self.modules():
+            if isinstance(m, Module):
+                for name, p in list(m._params.items()):
+                    if isinstance(p, MPCTensor):
+                        m._params[name] = torch.from_numpy(
+                            np.array(p.get_plain_text(), dtype=np.float64))
+        return self
+
+    def load_state_dict(self, state, strict: bool = True, prefix: str = ""):
+        """Install plaintext parameters and buffers by the JAX package's keys
+        (module.py:178-197): each parameter becomes a float64 tensor (an
+        encrypted one is replaced), each buffer is written; a parameter
+        missing from ``state`` raises where ``strict``."""
+        def plain(v):
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            return torch.from_numpy(np.array(v, dtype=np.float64))
+
+        for name in list(self._params):
+            key = f"{prefix}{name}"
+            if key in state:
+                self._params[name] = plain(state[key])
+            elif strict:
+                raise KeyError(key)
+        for name, buf in self._buffers.items():
+            key = f"{prefix}{name}"
+            if key in state and buf is not None:
+                self._buffers[name] = plain(state[key])
+        for mname, m in self.named_children():
+            if isinstance(m, Module):
+                m.load_state_dict(state, strict=strict, prefix=f"{prefix}{mname}.")
+        return self
+
+    # -- the training surface (module.py:250-275) ---------------------------
+    # torch's parameters(), named_parameters() and zero_grad() know nothing
+    # of the registry; these read it, with the JAX package's meaning
+
+    def named_parameters(self, prefix: str = "", recurse: bool = True,
+                         remove_duplicate: bool = True):
+        """(dotted name, parameter) of every registered parameter, this
+        module's first, then each child's (module.py:91-96)."""
+        for name, p in self._params.items():
+            yield (f"{prefix}.{name}" if prefix else name), p
+        if recurse:
+            for mname, m in self.named_children():
+                if isinstance(m, Module):
+                    yield from m.named_parameters(f"{prefix}.{mname}" if prefix else mname)
+
+    def parameters(self, recurse: bool = True):
+        for _, p in self.named_parameters(recurse=recurse):
+            yield p
+
+    def zero_grad(self, set_to_none: bool = True):
+        """Clear every parameter's accumulated gradient (module.py:250-255):
+        ``backward`` adds into ``grad``, so a training loop resets it each
+        step."""
+        for p in self.parameters():
+            if isinstance(p, MPCTensor):
+                p.grad = None
+        return self
+
+    def update_parameters(self, learning_rate, grad_threshold=100):
+        """An SGD step over the encrypted parameters with the reference's
+        guard against exploding gradients (module.py:257-275): a gradient
+        whose square exceeds ``grad_threshold``^2 is zeroed first. Each
+        parameter is replaced by a new leaf that requires grad."""
+        from ..autograd import no_grad
+
+        with no_grad():
+            for m in self.modules():
+                if not isinstance(m, Module):
+                    continue
+                for name, p in list(m._params.items()):
+                    g = getattr(p, "grad", None)
+                    if g is None:
+                        continue
+                    if grad_threshold is not None:
+                        g = g.mul(g.square().lt(grad_threshold * grad_threshold))
+                    new_p = p.sub(g.mul(learning_rate))
+                    new_p.requires_grad = True
+                    m._params[name] = new_p
         return self
 
     # -- functional extraction (the compiled path) --------------------------

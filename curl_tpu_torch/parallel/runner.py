@@ -37,6 +37,16 @@ call copies it into (the tokens of a new request). A call that differs
 from a captured one in any of these captures anew, keyed by all of them; a
 graph is never replayed over values it baked differently.
 
+``fn`` receives fresh wrappers (MPCTensors, shared tensors) of the
+arguments' tensors at each run, the warm-up's and the capture's apart, as
+a jitted function receives fresh tracers: a training step that sets its
+parameters' ``requires_grad``, accumulates their gradients and swaps their
+shares (``optim.SGD``) changes neither the caller's objects nor what the
+capture reads. A training step returns its new parameters (its
+``params_pytree``) and its loss; the next call passes those in, at new
+addresses, so it captures anew once and then reads them through its
+static buffers, and each replay trains on from the last.
+
 CommStats are counted once, at capture, as curl_tpu counts them once at
 trace; so are the kernels' launch counts. The runner keeps the capture's
 CommStats (``stats``). Tensors that ``fn`` reaches other than through its
@@ -289,7 +299,7 @@ class CompiledParties:
         key = (str(device), spec)
         entry = self._entries.get(key)
         if device.type != "cuda":
-            return self._eager(key, entry, keys, args)
+            return self._eager(key, entry, keys, spec, leaves)
         staged, counter = set(), rng.counter()
         if entry is not None:
             moved = {i for i, ptr in entry.inplace.items() if leaves[i].data_ptr() != ptr}
@@ -309,21 +319,23 @@ class CompiledParties:
         self.captures += 1
         self.stats, self.counter, self.constants = entry.stats, entry.counter, len(entry.held)
 
-    def _eager(self, key, entry, keys, args):
+    def _eager(self, key, entry, keys, spec, leaves):
         """The plain path (a CPU session): ``fn`` eagerly under ``keys``,
-        from the first call's draw counter; only the first call counts."""
+        from the first call's draw counter, over fresh wrappers of the
+        arguments' tensors; only the first call counts."""
+        args = _build(spec, leaves, public=True)
         if entry is None:
             entry = _Capture(rng.counter())
             before = _counts()
             with mpc_context(keys, self.world_size), _provider().serving(None):
-                out = self.fn(*_unwrap(args))
+                out = self.fn(*args)
             self._record(key, entry, before)
             return out
         resume = rng.counter()
         rng.set_counter(entry.counter)
         try:
             with _uncounted(), mpc_context(keys, self.world_size), _provider().serving(None):
-                return self.fn(*_unwrap(args))
+                return self.fn(*args)
         finally:
             rng.set_counter(resume)
 
@@ -335,7 +347,7 @@ class CompiledParties:
         resume = rng.counter()
         entry = _Capture(counter)
         rng.set_counter(counter)
-        args = _build(spec, _stage(entry, leaves, staged, device), public=True)
+        static = _stage(entry, leaves, staged, device)
         graph = torch.cuda.CUDAGraph()
         with mpc_context(keys, self.world_size), ring.holding_constants(entry.held), \
                 _provider().serving(None):
@@ -345,11 +357,14 @@ class CompiledParties:
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side), _uncounted():
-                self.fn(*args)
+                self.fn(*_build(spec, static, public=True))
             torch.cuda.current_stream(device).wait_stream(side)
             torch.cuda.synchronize(device)
             self.warmup_s = time.perf_counter() - t0
             rng.set_counter(entry.counter)
+            # fresh wrappers: what the warm-up left on them (a training
+            # step's gradients, its parameters' swapped shares) stays there
+            args = _build(spec, static, public=True)
             before = _counts()
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, capture_error_mode="global"):
