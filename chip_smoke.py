@@ -11,8 +11,11 @@ classifying 8 rows privately; bench.py's offline/online split
 dealer; private ResNet-18 (eager and captured) and ResNet-50 inference at
 224 x 224; private training of examples/mpc_cifar.py's LeNet (autograd,
 CrossEntropyLoss, SGD), eagerly and as a training step captured by
-``compile_parties``; then the three compressed forwards captured as CUDA
-graphs by ``compile_parties``.
+``compile_parties``; a torchvision-layout ResNet-18 brought as a plain torch
+model and converted by ``from_pytorch`` (eager and captured) and by
+``from_onnx`` of its ONNX export, and DPSplitModel's split training over
+LeNet; then the three compressed forwards captured as CUDA graphs by
+``compile_parties``.
 
     python3 chip_smoke.py
 
@@ -193,8 +196,37 @@ without the final line):
               bytes, launches, device busy share, peak and graph memory.
               It runs after phase 11, so that phase 5 holds the backward's
               launch signatures
+  13. convert  bring your own model: TorchResNet, torchvision's ResNet-18
+              written in plain torch (BasicBlock with an in-place ReLU and
+              out += identity, torch.flatten), holding phase 11's state dict
+              in float64 on the card, phase 11's input. from_pytorch (a
+              torch.fx trace into a GraphModule): its DOT (one node a
+              module), the graph in the clear through PlainTensor within
+              1e-9 of torch's float64 logits, then encrypted by party 0
+              under bench.py's kernel configuration: latency, rounds (the
+              CPU count, beside phase 11's native 285), bytes, launches,
+              peak memory, busy share, the logits within phase 11's bound,
+              top-1 kept; the GraphModule through compile_parties as phase
+              11 captures its model. export_onnx_bytes on the card with
+              torch's constant folding (each BatchNorm folded into its
+              convolution), from_onnx: the op types and the same readings
+              and checks at its own round count; the export without
+              folding logged beside it (its BatchNorms' encrypted
+              variances through the private inv_sqrt). Then DPSplitModel
+              over LeNet as a float32 torch model, batch 64, 10 sigmoid
+              outputs, multi-label targets: one step of each protocol
+              (layer_estimation, full_jacobian: the 640 x 62,006 Jacobian
+              encrypted, one private product), recorded and counted
+              together, each gradient against torch's float64
+              BCEWithLogits gradient and against the float64
+              backpropagation of its own dL/dZ under bounds fixed from CPU
+              runs, rounds the CPU count, latency, busy share; a step with
+              noise_magnitude against the noiseless one: the noise's
+              scale. It runs after phase 12, so that phase 5 holds its
+              launch signatures
   5. path     every launch signature (shapes, strides, op) that any of the
-              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9, 10, 11 and 12
+              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9, 10, 11, 12
+              and 13
               passed to ring_mm, philox, fused_mul, ltz, max_step and
               seed_expand (expand and open), on
               fresh operands of the same layout: bit for bit against plain,
@@ -226,8 +258,9 @@ plain time and bound of one phase 4c forward, the main path of the slices
 that ported the kernels, or for the 3-pair ring_mm_acc entry of phase 7's
 generation; under ``paths`` the same for each phase's run, phase 10's fill
 and online as "cached fill" and "cached online", phase 11's as "resnet18"
-and "resnet50", phase 12's as "train", and under ``captured`` the launches
-of each phase 6, 7, 10, 11 and 12 capture), then the
+and "resnet50", phase 12's as "train", phase 13's as "convert", "convert
+onnx" and "dp split", and under ``captured`` the launches of each phase 6,
+7, 10, 11, 12 and 13 capture), then the
 card's name and power limit, then ``{"ok": true, "device": {...}}`` as the
 last line.
 """
@@ -3425,6 +3458,523 @@ def run_train(dev):
     return res, captured, failures
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: bring your own model (from_pytorch, from_onnx, DPSplitModel)
+# ---------------------------------------------------------------------------
+
+CONVERT_PATH = "convert"
+CONVERT_ONNX_PATH = "convert onnx"
+DP_SPLIT_PATH = "dp split"
+
+
+class TorchBasicBlock(torch.nn.Module):
+    """torchvision's ``BasicBlock`` (torchvision/models/resnet.py), written
+    as torchvision writes it: an in-place ReLU and ``out += identity``."""
+
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.conv1(x)
+        out = self.bn1(out)
+        out = self.relu(out)
+        out = self.conv2(out)
+        out = self.bn2(out)
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        out += identity
+        out = self.relu(out)
+        return out
+
+
+class TorchResNet(torch.nn.Module):
+    """torchvision's ``ResNet`` of BasicBlocks, its layout and keys: the
+    7 x 7 stem at stride 2, BatchNorm, ReLU, the 3 x 3 max pool, four
+    layers, ``AdaptiveAvgPool2d((1, 1))``, ``torch.flatten(x, 1)`` and the
+    fc layer."""
+
+    def __init__(self, layers=(2, 2, 2, 2), num_classes=RESNET_CLASSES):
+        super().__init__()
+        nn = torch.nn
+        self.inplanes = 64
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(64, layers[0])
+        self.layer2 = self._make_layer(128, layers[1], stride=2)
+        self.layer3 = self._make_layer(256, layers[2], stride=2)
+        self.layer4 = self._make_layer(512, layers[3], stride=2)
+        self.avgpool = nn.AdaptiveAvgPool2d((1, 1))
+        self.fc = nn.Linear(512 * TorchBasicBlock.expansion, num_classes)
+
+    def _make_layer(self, planes, blocks, stride=1):
+        nn = torch.nn
+        downsample = None
+        if stride != 1 or self.inplanes != planes * TorchBasicBlock.expansion:
+            downsample = nn.Sequential(
+                nn.Conv2d(self.inplanes, planes * TorchBasicBlock.expansion, 1, stride=stride,
+                          bias=False),
+                nn.BatchNorm2d(planes * TorchBasicBlock.expansion))
+        layers = [TorchBasicBlock(self.inplanes, planes, stride, downsample)]
+        self.inplanes = planes * TorchBasicBlock.expansion
+        layers += [TorchBasicBlock(self.inplanes, planes) for _ in range(1, blocks)]
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.conv1(x)
+        x = self.bn1(x)
+        x = self.relu(x)
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        x = self.avgpool(x)
+        x = torch.flatten(x, 1)
+        x = self.fc(x)
+        return x
+
+
+def torch_resnet18(dev, size=RESNET_SIZE):
+    """(the torchvision-layout ResNet-18 in float64 on ``dev``, eval mode,
+    holding phase 11's state dict, the input): the weights ``resnet_state``
+    draws for the port's native resnet18 (numpy seed 1234, BatchNorm
+    statistics from the float64 forward over the input)."""
+    from curl_tpu_torch import models
+    from curl_tpu_torch.nn.module import skip_init
+
+    x = resnet_input(size)
+    with skip_init():
+        native = models.resnet18(num_classes=RESNET_CLASSES)
+    sd = resnet_state(native, x, dev)
+    model = TorchResNet().double()
+    missing, unexpected = model.load_state_dict(
+        {k: torch.as_tensor(np.asarray(v), dtype=torch.float64) for k, v in sd.items()},
+        strict=False)
+    assert not unexpected and all(k.endswith("num_batches_tracked") for k in missing)
+    return model.to(dev).eval(), x
+
+
+def torch_logits(model, x, dev):
+    """The torch model's float64 logits on ``dev``, numpy."""
+    with torch.no_grad():
+        return model(torch.as_tensor(x, dtype=torch.float64, device=dev)).cpu().numpy()
+
+
+def onnx_op_types(data):
+    """{op_type: count} of the nodes of serialized ONNX bytes."""
+    from curl_tpu_torch.utils import onnx_lite
+
+    types = {}
+    for node in onnx_lite.load_model(data).graph.nodes:
+        types[node.op_type] = types.get(node.op_type, 0) + 1
+    return types
+
+
+# DPSplitModel over examples/mpc_cifar.py's LeNet (phase 12's architecture
+# and weights, numpy seed 1213), a plain float32 torch model on the card, on
+# phase 12's batch (numpy seed 1214) with 10 sigmoid outputs and multi-label
+# 0/1 targets from numpy seed 1216; one step of each protocol
+DP_TARGET_SEED = 1216
+DP_PROTOCOLS = ("layer_estimation", "full_jacobian")
+# the noise_magnitude of the noisy steps: the gradients are 1e-4 to 1e-2
+DP_NOISE = 0.01
+
+
+# The bounds and round counts, fixed before the phase's first card run from
+# CPU runs of the port (scripts/torch_convert_bound.py, PERF.md §6). The
+# converted ResNet-18 at 192 x 192 read 0.0026 through from_pytorch and
+# 0.0023 through from_onnx of torch's export with constant folding (each
+# BatchNorm folded into its convolution), session seeds 11, 1 and 2: phase
+# 11's bound holds both. Its rounds do not depend on the input size:
+# from_pytorch's are the native model's 285; the folded graph drops
+# BatchNorm's private gain, 227. The export without folding keeps
+# BatchNormalization nodes whose running statistics are encrypted
+# initializers (curl_tpu's from_onnx does so): 567 rounds, and 0.38 from
+# float64 at 192 through the private inv_sqrt, logged, not bounded. Each
+# converted graph run in the clear: within 1e-9 of torch's float64 logits.
+CONVERT_ROUNDS = {CONVERT_PATH: 285, CONVERT_ONNX_PATH: 227, "unfolded": 567}
+CONVERT_PLAIN_REL_L2 = 1e-9
+# DPSplitModel at batch 64: each protocol's step 21 rounds. Each gradient's
+# relative L2 against torch's float64 BCEWithLogits gradient
+# (DP_GRAD_REL_L2) and against the float64 backpropagation of what the
+# protocol computes from the step's own decrypted dL/dZ (DP_OWN_REL_L2),
+# each bound 1.5 times the worst of session seeds 11, 1 and 2 (at least
+# 0.01). The default haar sigmoid errs up to 0.09 at logits near 0, a bias
+# in dL/dZ that the batch does not average out: full_jacobian read
+# 0.10-0.68 from BCEWithLogits, 0.00-0.05 from its own dL/dZ.
+# layer_estimation solves dL/dZ through pinv(X) of the last Linear's
+# 64 x 84 input, rank 59 (25 ReLUs dead on the whole batch): its error
+# beyond the projection onto X's columns is the fixed point's, amplified by
+# X's small singular values: 0.55-2.21 and 0.16-1.81, but 0.014 for the
+# last Linear's weight. With noise, the deviation's standard deviation read
+# -4% to +6% of the expected; DP_NOISE_TOL holds it.
+DP_ROUNDS = {"layer_estimation": 21, "full_jacobian": 21}
+DP_GRAD_REL_L2 = {
+    "layer_estimation": {"0.weight": 2.6, "0.bias": 3.4, "3.weight": 1.9, "3.bias": 1.6,
+                         "7.weight": 1.8, "7.bias": 1.7, "9.weight": 1.3, "9.bias": 1.3,
+                         "11.weight": 0.83, "11.bias": 1.0},
+    "full_jacobian": {"0.weight": 0.16, "0.bias": 1.1, "3.weight": 0.46, "3.bias": 0.53,
+                      "7.weight": 0.8, "7.bias": 0.87, "9.weight": 0.78, "9.bias": 0.88,
+                      "11.weight": 0.8, "11.bias": 0.87}}
+DP_OWN_REL_L2 = {
+    "layer_estimation": {"0.weight": 2.8, "0.bias": 1.7, "3.weight": 1.7, "3.bias": 1.2,
+                         "7.weight": 1.4, "7.bias": 1.2, "9.weight": 0.88, "9.bias": 0.77,
+                         "11.weight": 0.022, "11.bias": 0.25},
+    "full_jacobian": {"0.weight": 0.027, "0.bias": 0.047, "3.weight": 0.034, "3.bias": 0.027,
+                      "7.weight": 0.075, "7.bias": 0.031, "9.weight": 0.064, "9.bias": 0.011,
+                      "11.weight": 0.023, "11.bias": 0.01}}
+DP_NOISE_TOL = 0.15
+# kernels a DP step must launch (its model runs in plain torch: no private
+# pool and no ReLU)
+DP_LAUNCHED = ("ring_mm", "ring_mm_acc", "philox", "fused_mul")
+
+
+def dp_targets(batch=LENET_BATCH, seed=DP_TARGET_SEED):
+    """Multi-label 0/1 targets (batch, 10) from numpy ``seed``."""
+    return np.random.default_rng(seed).integers(0, 2, (batch, LENET_CLASSES)).astype(np.float64)
+
+
+def torch_lenet(dev, dtype=torch.float32):
+    """examples/mpc_cifar.py's LeNet as a plain torch model on ``dev``
+    holding ``lenet_state()``."""
+    model = build_lenet(torch.nn).to(dtype)
+    model.load_state_dict({k: torch.as_tensor(v, dtype=dtype) for k, v in lenet_state().items()})
+    return model.to(dev)
+
+
+def dp_reference_grads(x, y, dev):
+    """Each LeNet parameter's gradient of torch's float64 BCEWithLogits
+    (the mean over every output), by state dict key, numpy."""
+    model = torch_lenet(dev, torch.float64)
+    logits = model(torch.as_tensor(x, dtype=torch.float64, device=dev))
+    loss = torch.nn.functional.binary_cross_entropy_with_logits(
+        logits, torch.as_tensor(y, dtype=torch.float64, device=dev))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return {k: g.cpu().numpy() for (k, _), g in zip(model.named_parameters(), grads)}
+
+
+def dp_protocol_reference(dp, x, dev):
+    """Each LeNet parameter's float64 gradient backpropagated from what the
+    step's protocol computes exactly from its own decrypted dL/dZ, so that
+    the error left is the protocol's fixed point alone (the sigmoid's LUT
+    error in dL/dZ cancels): full_jacobian backpropagates dL/dZ itself;
+    layer_estimation its projection X pinv(X) dL/dZ onto the columns of the
+    last Linear's input X, which is dL/dZ only where X has full row rank."""
+    model = torch_lenet(dev, torch.float64)
+    logits = model(torch.as_tensor(x, dtype=torch.float64, device=dev))
+    dldz = torch.as_tensor(dp.dLdZ.get_plain_text(), dtype=torch.float64, device=dev)
+    if hasattr(dp, "_last_input"):
+        h = dp._last_input.detach().to(torch.float64)
+        dldz = h @ (torch.linalg.pinv(h) @ dldz)
+    grads = torch.autograd.grad(logits, list(model.parameters()), grad_outputs=dldz)
+    return {k: g.cpu().numpy() for (k, _), g in zip(model.named_parameters(), grads)}
+
+
+def dp_step(ct, model, x, y, protocol, noise=None, **kw):
+    """One DPSplitModel step of ``protocol`` on the torch ``model``:
+    zero_grad, the forward, the loss, backward. Returns (each parameter's
+    gradient by state dict key, numpy float64; the DPSplitModel)."""
+    with ct.cfg.temp_override({"nn.dpsmpc.protocol": protocol}):
+        dp = ct.nn.DPSplitModel(model, noise_magnitude=noise, **kw)
+        if protocol == "layer_estimation":
+            dp.attach_hooks()
+        dp.zero_grad()
+        dp(x)
+        dp.compute_loss(y)
+        dp.backward()
+    return {k: p.grad.detach().cpu().numpy().astype(np.float64)
+            for k, p in model.named_parameters()}, dp
+
+
+def dp_noise_scale(dp, protocol, noisy, clean, noise=DP_NOISE):
+    """(the noisy step's deviation from the noiseless one, its expected
+    standard deviation): every gradient where the noise is added to them
+    (full_jacobian); the last Linear's weight gradient under
+    layer_estimation, where the noise on dL/dW reaches it through the
+    projection onto the row space of that layer's input X, rank r of I
+    columns: sigma sqrt(r / I)."""
+    if protocol == "full_jacobian":
+        dev = np.concatenate([(noisy[k] - clean[k]).ravel() for k in clean])
+        return float(dev.std()), noise
+    key = list(clean)[-2]  # the last Linear's weight
+    x = dp._last_input.detach().to(torch.float64)
+    rank = int(torch.linalg.matrix_rank(x))
+    return float((noisy[key] - clean[key]).std()), noise * math.sqrt(rank / x.shape[1])
+
+
+def convert_forward(tag, graph, x, ref, rounds):
+    """A converted graph encrypted by party 0, under bench.py's kernel
+    configuration: a warm-up forward recording every launch signature (for
+    phase 5), 3 forwards (the last counted: launches, CommStats, peak
+    memory), one profiled; the logits against float64 under
+    RESNET_LOGITS_REL_L2, top-1 kept, the rounds the CPU count, every
+    kernel of the path launched. Returns (res, failures)."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+
+    graph.encrypt(src=0)
+    xe = ct.cryptensor(x)
+    with cfg.temp_override(BENCH_CONFIG):
+        t0 = time.perf_counter()
+        with recording_launches() as calls:
+            logits = graph(xe).get_plain_text()
+        warm_s = time.perf_counter() - t0
+        lat = []
+        for i in range(3):
+            if i == 2:
+                reset_launches()
+                ct.reset_communication_stats()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = graph(xe)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if i == 2:
+                launches, by_op, _ = read_launches()
+                stats = ct.get_communication_stats()
+                peak = torch.cuda.max_memory_allocated()
+        del out
+        busy = profile_forward(graph, xe, min(lat), tag=f"profile {tag}")
+    err, agree = resnet_readings(logits, ref)
+    log(f"[{tag}] warm-up forward {warm_s:.2f} s; latencies {', '.join(f'{v:.4f}' for v in lat)} "
+        f"s (best {min(lat):.4f} s, {1 / min(lat):.2f} images/s; {nvidia_smi_line()})")
+    log(f"[{tag}] one forward: {stats['rounds']} rounds (the CPU count {rounds}; phase 11's "
+        f"native ResNet-18 {RESNET_ROUNDS['resnet18']}), {stats['bytes']} bytes per party; "
+        f"launches {launches}; fused_mul and max_step by op {by_op}")
+    log(f"[{tag}] peak device memory {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held")
+    log(f"[{tag}] logits against the torch model in float64: relative L2 {err:.5f} (bound "
+        f"{RESNET_LOGITS_REL_L2}), top-1 {'agrees' if agree else 'differs'} (private "
+        f"{int(logits.argmax())}, float64 {int(ref.argmax())})")
+    missing = [k for k, n in launches.items() if n == 0 and k not in RESNET_UNLAUNCHED]
+    missing += [c for c in unlaunched_chains(by_op) if c not in RESNET_UNLAUNCHED]
+    checks = {
+        f"logits finite, (1, {RESNET_CLASSES})":
+            logits.shape == (1, RESNET_CLASSES) and bool(np.isfinite(logits).all()),
+        f"logits within relative L2 {RESNET_LOGITS_REL_L2}": err <= RESNET_LOGITS_REL_L2,
+        "top-1 kept": bool(agree),
+        f"rounds the CPU count {rounds}": stats["rounds"] == rounds,
+        "every kernel of the path launched": not missing,
+        "recorded launches equal the counted ones": recorded_launches(calls) == (launches, by_op),
+    }
+    failures = report_checks(tag, checks)
+    res = dict(calls=calls, launches=launches, by_op=by_op, stats=stats, best_s=min(lat),
+               busy_ms=busy, peak=peak - held, xe=xe, err=err)
+    return res, failures
+
+
+def report_checks(tag, checks):
+    """Log each check "held" or "FAILED"; the failed ones."""
+    for name, ok in checks.items():
+        log(f"[{tag}] {name}: {'held' if ok else 'FAILED'}")
+    return [f"{tag}: {name}" for name, ok in checks.items() if not ok]
+
+
+def plain_check(tag, graph, x, ref, dev):
+    """The converted graph run in the clear (PlainTensor, float64 on the
+    card) against the torch model's float64 logits."""
+    t0 = time.perf_counter()
+    out = graph(torch.as_tensor(x, dtype=torch.float64, device=dev))
+    err = rel_l2(np.asarray(out.get_plain_text()), ref)
+    log(f"[{tag}] unencrypted through PlainTensor: relative L2 {err:.3e} from the torch model's "
+        f"float64 logits ({time.perf_counter() - t0:.3f} s)")
+    return report_checks(tag, {f"the graph in the clear within relative L2 "
+                               f"{CONVERT_PLAIN_REL_L2}": err <= CONVERT_PLAIN_REL_L2})
+
+
+def run_convert(dev):
+    """Phase 13: bring your own model, 2 parties, session seed 11, under
+    bench.py's kernel configuration. A torchvision-layout ResNet-18
+    (TorchResNet: phase 11's weights and input, float64 on the card)
+    converted by from_pytorch (a private forward, the graph in the clear,
+    its DOT, then the GraphModule through compile_parties as phase 11
+    captures its model) and by from_onnx of export_onnx_bytes on the card
+    (torch's constant folding on, each BatchNorm folded into its
+    convolution; the export without folding logged beside it); then one
+    DPSplitModel step of each protocol over LeNet, noiseless and with
+    DP_NOISE. Returns ({path: (calls, launches, by_op)}, {path: the
+    capture's readings}, failures)."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.nn.tensorboard import graph_to_dot
+    from curl_tpu_torch.utils.torch_onnx_export import export_onnx_bytes
+
+    ct.init(world_size=2, seed=SEED)
+    t0 = time.perf_counter()
+    model, x = torch_resnet18(dev)
+    ref = torch_logits(model, x, dev)
+    xt = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    log(f"[{CONVERT_PATH}] TorchResNet (torchvision's BasicBlock layout, in-place ReLU, out += "
+        f"identity, torch.flatten) with phase 11's state dict, float64 on the card, in "
+        f"{time.perf_counter() - t0:.1f} s; float64 top-1 {int(ref.argmax())}")
+    paths, captured, failures = {}, {}, []
+
+    # item 1: from_pytorch, private, in the clear, its DOT, captured
+    t0 = time.perf_counter()
+    graph = ct.nn.from_pytorch(model)
+    n_modules = len(list(graph.named_modules()))
+    dot = graph_to_dot(graph, "resnet18")
+    log(f"[{CONVERT_PATH}] from_pytorch: a GraphModule of {len(graph.graph.nodes)} fx nodes and "
+        f"{n_modules} modules in {time.perf_counter() - t0:.2f} s; graph_to_dot: "
+        f"{dot.count(' [label=')} nodes, {dot.count(' -> ')} edges, {len(dot)} characters")
+    failures += report_checks(CONVERT_PATH, {
+        "graph_to_dot has one node a module": dot.count(" [label=") == n_modules})
+    failures += plain_check(CONVERT_PATH, graph, x, ref, dev)
+    res, more = convert_forward(CONVERT_PATH, graph, x, ref, CONVERT_ROUNDS[CONVERT_PATH])
+    failures += more
+    paths[CONVERT_PATH] = (res["calls"], res["launches"], res["by_op"])
+    captured[CONVERT_PATH], more = run_captured_resnet(CONVERT_PATH, graph, res["xe"], ref, res)
+    failures += more
+    del graph, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # item 2: export_onnx_bytes on the card, from_onnx
+    t0 = time.perf_counter()
+    data = export_onnx_bytes(model, xt, do_constant_folding=True)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = ct.nn.from_onnx(data)
+    log(f"[{CONVERT_ONNX_PATH}] export_onnx_bytes on the card (torch {torch.__version__}, opset "
+        f"11, constant folding) in {export_s:.2f} s: {len(data)} bytes, ops "
+        f"{onnx_op_types(data)}; from_onnx in {time.perf_counter() - t0:.2f} s, "
+        f"{len(list(graph.named_modules()))} modules")
+    del data
+    failures += plain_check(CONVERT_ONNX_PATH, graph, x, ref, dev)
+    res, more = convert_forward(CONVERT_ONNX_PATH, graph, x, ref,
+                                CONVERT_ROUNDS[CONVERT_ONNX_PATH])
+    failures += more
+    paths[CONVERT_ONNX_PATH] = (res["calls"], res["launches"], res["by_op"])
+    del graph, res
+    # the export without folding: BatchNormalization nodes with encrypted
+    # running statistics, logged beside it
+    data = export_onnx_bytes(model, xt)
+    graph = ct.nn.from_onnx(data)
+    graph.encrypt(src=0)
+    with cfg.temp_override(BENCH_CONFIG):
+        ct.reset_communication_stats()
+        logits = graph(ct.cryptensor(x)).get_plain_text()
+        stats = ct.get_communication_stats()
+    err, agree = resnet_readings(logits, ref)
+    log(f"[{CONVERT_ONNX_PATH}] the export without constant folding ({onnx_op_types(data)}): "
+        f"{stats['rounds']} rounds (the CPU count {CONVERT_ROUNDS['unfolded']}), {stats['bytes']} "
+        f"bytes; logits relative L2 {err:.5f}, top-1 {'agrees' if agree else 'differs'}: its "
+        "BatchNorms divide by the private inv_sqrt of their encrypted variances, not bounded")
+    failures += report_checks(CONVERT_ONNX_PATH, {
+        "the unfolded export's rounds the CPU count": stats["rounds"] == CONVERT_ROUNDS["unfolded"]})
+    del data, graph, model, xt
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("phase 13 convert")
+
+    dp_res, more = run_dp_split(dev)
+    failures += more
+    paths[DP_SPLIT_PATH] = (dp_res["calls"], dp_res["launches"], dp_res["by_op"])
+    return paths, captured, failures
+
+
+def run_dp_split(dev):
+    """Phase 13's DPSplitModel: LeNet as a float32 torch model on the card,
+    batch 64, multi-label targets; one step of each protocol recorded and
+    counted together (the path "dp split"), each protocol's gradients
+    against float64, two more steps timed, one profiled, then a step with
+    DP_NOISE against the noiseless one."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+
+    ct.init(world_size=2, seed=SEED)
+    x, _ = lenet_batch()
+    y = dp_targets()
+    ref = dp_reference_grads(x, y, dev)
+    model = torch_lenet(dev)
+    steps = {}
+    failures = []
+    with cfg.temp_override(BENCH_CONFIG):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with recording_launches() as calls:
+            for protocol in DP_PROTOCOLS:
+                ct.reset_communication_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grads, dp = dp_step(ct, model, x, y, protocol)
+                torch.cuda.synchronize()
+                steps[protocol] = dict(grads=grads, first_s=time.perf_counter() - t0,
+                                       stats=ct.get_communication_stats(), dp=dp)
+        launches, by_op, _ = read_launches()
+        peak = torch.cuda.max_memory_allocated() - held
+        for protocol, st in steps.items():
+            st["own"] = dp_protocol_reference(st.pop("dp"), x, dev)
+            lat = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dp_step(ct, model, x, y, protocol)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+            st["lat"] = lat
+            st["busy"] = profile_forward(None, None, min(lat), tag=f"profile dp {protocol}",
+                                         top=6, call=lambda p=protocol: dp_step(ct, model, x, y, p))
+            noisy, dp = dp_step(ct, model, x, y, protocol, noise=DP_NOISE)
+            st["noise"] = dp_noise_scale(dp, protocol, noisy, st["grads"])
+            del dp
+    smi = nvidia_smi_line()
+    for protocol, st in steps.items():
+        tag = f"dp {protocol}"
+        grad = rel_l2_by_key(st["grads"], ref)
+        own = rel_l2_by_key(st["grads"], st["own"])
+        got, want = st["noise"]
+        log(f"[{tag}] a step (forward, loss, backward) {st['first_s']:.4f} s recorded, then "
+            f"{', '.join(f'{v:.4f}' for v in st['lat'])} s ({LENET_BATCH / min(st['lat']):.1f} "
+            f"images/s; {smi}); {st['stats']['rounds']} rounds (the CPU count "
+            f"{DP_ROUNDS[protocol]}), {st['stats']['bytes']} bytes per party")
+        log(f"[{tag}] gradients against float64 BCEWithLogits, relative L2 (bound): " + ", ".join(
+            f"{k} {v:.4f} ({DP_GRAD_REL_L2[protocol][k]})" for k, v in grad.items()))
+        log(f"[{tag}] against the float64 backpropagation of the step's own dL/dZ (bound): "
+            + ", ".join(f"{k} {v:.4f} ({DP_OWN_REL_L2[protocol][k]})" for k, v in own.items()))
+        log(f"[{tag}] noise_magnitude {DP_NOISE}: the deviation's standard deviation {got:.6f}, "
+            f"expected {want:.6f} ({got / want - 1:+.1%})")
+        failures += report_checks(tag, {
+            "every gradient finite and within its bound against float64": all(
+                np.isfinite(st["grads"][k]).all() and v <= DP_GRAD_REL_L2[protocol][k]
+                for k, v in grad.items()),
+            "every gradient within its bound against its own dL/dZ's backpropagation": all(
+                v <= DP_OWN_REL_L2[protocol][k] for k, v in own.items()),
+            f"rounds the CPU count {DP_ROUNDS[protocol]}":
+                st["stats"]["rounds"] == DP_ROUNDS[protocol],
+            f"the noise's scale within {DP_NOISE_TOL:.0%}": abs(got / want - 1) <= DP_NOISE_TOL,
+        })
+    log(f"[{DP_SPLIT_PATH}] one step of each protocol: launches {launches}; fused_mul and "
+        f"max_step by op {by_op}; peak device memory {peak / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held")
+    failures += report_checks(DP_SPLIT_PATH, {
+        f"the steps launched {', '.join(DP_LAUNCHED)}": all(launches[k] for k in DP_LAUNCHED),
+        "recorded launches equal the counted ones": recorded_launches(calls) == (launches, by_op),
+    })
+    best = min(min(st["lat"]) for st in steps.values())
+    res = dict(calls=calls, launches=launches, by_op=by_op, best_s=best, peak=peak)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, failures
+
+
 def runner_shares(tree):
     """The share tensors of an output pytree, in order."""
     from curl_tpu_torch.parallel import runner
@@ -4569,6 +5119,12 @@ def run_paths(dev, gen):
     paths[TRAIN_PATH] = (train["calls"], train["launches"], train["by_op"])
     del train
     phase_done("phase 12")
+    # phase 13: bring your own model (from_pytorch, from_onnx, DPSplitModel);
+    # before phase 5, which holds its launch signatures too
+    convert_paths, convert_captured, convert_failures = run_convert(dev)
+    failures += convert_failures
+    paths.update(convert_paths)
+    phase_done("phase 13")
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
@@ -4589,7 +5145,7 @@ def run_paths(dev, gen):
     # through compile_parties, captured once and replayed; each model freed
     # after
     captured = {GENERATE_PATH: generated["captured"], **cached.pop("captured"), **resnet_captured,
-                TRAIN_PATH: train_captured}
+                TRAIN_PATH: train_captured, **convert_captured}
     del generated
     for p, res in (("compressed", compressed), ("neo", neo), ("neo_large", neo_large)):
         captured[p], cap_failures = run_captured(p, res)

@@ -121,6 +121,23 @@ def stack(tensors, dim=0) -> MPCTensor:
     return _sequence_op("stack", tensors, dim)
 
 
+def where(condition, x, y):
+    """``x`` where ``condition`` is 1, else ``y`` (curl_tpu/__init__.py:502-508):
+    a private 0/1 condition by two private products; a public one by public
+    products with the private operands; all public, torch.where."""
+    from .mpc.primitives.arithmetic import _public_tensor
+
+    if isinstance(condition, MPCTensor):
+        return condition.mul(x).add(condition.neg().add(1).mul(y))
+    cond = _public_tensor(condition, constant=True).to(torch.float64)
+    if isinstance(x, MPCTensor):
+        return x.mul(cond).add(y.mul(1 - cond) if isinstance(y, MPCTensor)
+                               else _public_tensor(y).to(torch.float64) * (1 - cond))
+    if isinstance(y, MPCTensor):
+        return y.mul(1 - cond).add(_public_tensor(x).to(torch.float64) * cond)
+    return torch.where(cond != 0, _public_tensor(x), _public_tensor(y))
+
+
 def _sizes(sizes):
     return tuple(sizes[0]) if len(sizes) == 1 and isinstance(sizes[0], (tuple, list)) else sizes
 

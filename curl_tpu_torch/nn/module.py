@@ -73,6 +73,24 @@ def _normal(shape):
     return torch.randn(shape, generator=_generator(), dtype=torch.float64)
 
 
+class Parameter:
+    """Marks a value as a parameter where it is assigned (module.py:28):
+    ``module.name = Parameter(value)`` registers ``value`` as a float64
+    tensor, as ``register_param`` does."""
+
+    def __init__(self, value):
+        self.value = value
+
+
+def _param_tensor(value):
+    """A plaintext parameter as a float64 tensor (an encrypted one as it is)."""
+    if isinstance(value, MPCTensor):
+        return value
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(torch.float64)
+    return torch.from_numpy(np.array(value, dtype=np.float64))
+
+
 class Module(torch.nn.Module):
     """Base module: a registry of plaintext or encrypted parameters."""
 
@@ -82,7 +100,15 @@ class Module(torch.nn.Module):
         self.training = False
 
     def register_param(self, name, value):
+        if isinstance(value, Parameter):
+            value = _param_tensor(value.value)
         self._params[name] = value
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            self.register_param(name, value)
+        else:
+            super().__setattr__(name, value)
 
     def __getattr__(self, name):
         params = self.__dict__.get("_params")
