@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of curl_tpu_torch on one CUDA card: kernels; the function
-library; the private 2-party GPT-2 forward under the shipped configuration,
+library; the private 2-party GPT-2 forward under the shipped configuration
+(and under each protocol layout: replicated sharing at 3 parties, the TTP
+dealer, Beaver at 3 parties, active security),
 under bench.py's kernel configuration, at batch 8 with Beaver-masked weight
 reuse, and with seed-compressed weights as bench.py builds them; then
 GPT-Neo 1.3B's and 2.7B's geometries, seed-compressed; private greedy
@@ -93,13 +95,15 @@ without the final line):
               by the composable route (the same tensor's expansion) at the
               same draw counters: delta and the output shares bit-identical;
               the same forward by the composable route, profiled beside it
-  4d. neo     GPT-Neo 1.3B's geometry (2048 wide, 16 heads, 24 blocks,
-              vocab 50257) through GPT.build_compressed, chunked block
+  4d. neo     GPT-Neo 1.3B's geometry (2048 wide, 16 heads, vocab 50257;
+              12 of its 24 blocks since phase 14) through
+              GPT.build_compressed, chunked block
               linears, weights made block by block from a numpy seed: the
               same readings and open checks, against its own pre-declared
               bound
-  4f. neo_large  GPT-Neo 2.7B's geometry (2560 wide, 20 heads, 32 blocks,
-              vocab 50257), as 4d: the same readings and checks against its
+  4f. neo_large  GPT-Neo 2.7B's geometry (2560 wide, 20 heads, vocab
+              50257; 16 of its 32 blocks since phase 14), as 4d: the same
+              readings and checks against its
               own pre-declared bound, resident shares at most 0.6 of the
               materialized model's, rounds equal to the CPU count
   7. generate private greedy generation with a causal GPT-2 (phase 4's
@@ -224,9 +228,26 @@ without the final line):
               noise_magnitude against the noiseless one: the noise's
               scale. It runs after phase 12, so that phase 5 holds its
               launch signatures
+  14. protocols  the protocol matrix: phase 4's GPT-2 (weights, tokens,
+              configs/default.yaml, materialized) under rss3 (replicated
+              sharing, 3 parties), ttp2 (the TTP dealer), tfp3 (Beaver, 3
+              parties: the tuple one-hot embedding, the wrap-corrected
+              truncation) and active2 (the sacrifice check), each a path of
+              its own: the final-LayerNorm hidden state against float64
+              under the layout's bound, rounds and bytes the CPU counts,
+              ring_mm_acc and philox launched in every layout, ring_mm in
+              every one but rss3 (whose products are 3-pair ring_mm_acc
+              launches, checked), K5-K8 not launched; eager latency (best
+              of 3), the device busy share, peak memory. rss3 is also
+              captured by compile_parties at 3 parties and replayed at
+              fresh seeds, bit-identical to the eager forward at the
+              capture's keys and counter; active2 is also run with every
+              triple's c off by one in one element, which must poison it.
+              It runs after phase 13, so that phase 5 holds its launch
+              signatures
   5. path     every launch signature (shapes, strides, op) that any of the
-              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9, 10, 11, 12
-              and 13
+              runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9, 10, 11, 12,
+              13 and 14
               passed to ring_mm, philox, fused_mul, ltz, max_step and
               seed_expand (expand and open), on
               fresh operands of the same layout: bit for bit against plain,
@@ -259,8 +280,9 @@ that ported the kernels, or for the 3-pair ring_mm_acc entry of phase 7's
 generation; under ``paths`` the same for each phase's run, phase 10's fill
 and online as "cached fill" and "cached online", phase 11's as "resnet18"
 and "resnet50", phase 12's as "train", phase 13's as "convert", "convert
-onnx" and "dp split", and under ``captured`` the launches of each phase 6,
-7, 10, 11, 12 and 13 capture), then the
+onnx" and "dp split", phase 14's as "protocols <layout>", and under
+``captured`` the launches of each phase 6, 7, 10, 11, 12, 13 and 14
+capture) and, under ``protocols``, phase 14's readings by layout; then the
 card's name and power limit, then ``{"ok": true, "device": {...}}`` as the
 last line.
 """
@@ -379,7 +401,17 @@ NEO_SCALE_FREE_L2 = 0.20
 # by a truncated product as 2560's (128) does; width 80's (4) divides
 # locally and counts one round a block fewer.
 NEO_LARGE_SCALE_FREE_L2 = 0.22
-NEO_LARGE_ROUNDS = 5517
+# Since phase 14 the two GPT-Neo geometries run at half their depth (full
+# width, vocabulary and chunking), so that the whole script stays inside
+# its time limit: GPT-Neo 1.3B's at 12 of 24 blocks, 2.7B's at 16 of 32.
+# The bounds hold there: `python3 scripts/torch_neo_large_bound.py --width
+# 240 --blocks 16` reads 0.14579 sound and 0.24203 with the least-felt
+# block left out, `... --model GPTNeo --width 240 --blocks 12` 0.12845 and
+# 0.23658 (PERF.md §6); and 2.7B's rounds at 16 blocks, that run's count
+# (5517 at 32).
+NEO_BLOCKS = 12
+NEO_LARGE_BLOCKS = 16
+NEO_LARGE_ROUNDS = 2973
 # Phase 4e: batch 8 with the embedding and the head over chunks of 64
 # positions (the Beaver-masked reuse), bench.py's batch
 BATCH8 = 8
@@ -956,6 +988,7 @@ def check_philox_rate(dev, largest_calls):
 
 RING_KEYS = (0x0123456789ABCDEF, 0x0FEDCBA987654321)
 DEALER_KEY = 0x00C0FFEE0DDBA11
+TTP_KEYS = (0x7A7A_0001_0203_0405, 0x7A7A_0607_0809_0A0B, 0x7A7A_0C0D_0E0F_1011)
 
 
 def check_keys() -> dict:
@@ -968,11 +1001,13 @@ def check_keys() -> dict:
 
     keys = crandom.make_party_keys(SEED, len(RING_KEYS))
     keys.update(next=list(RING_KEYS), prev=[RING_KEYS[-1], RING_KEYS[0]], dealer=[DEALER_KEY],
-                fused=[FUSED_KEY])
+                fused=[FUSED_KEY], ttp=list(TTP_KEYS))
     crandom.set_keys(keys)
     ring = crandom.stream_ref("next")
+    ttp = crandom.SLOTS["ttp"]
     return dict(ring=ring, ring0=crandom.TABLE.ref(ring.slot), ring1=crandom.TABLE.ref(ring.slot + 1),
-                dealer=crandom.stream_ref("dealer"), fused=crandom.fused_key())
+                dealer=crandom.stream_ref("dealer"), fused=crandom.fused_key(),
+                ttp2=crandom.TABLE.ref(ttp, 2), ttp3=crandom.TABLE.ref(ttp, 3))
 
 
 def provider_groups(dev, gen):
@@ -1011,7 +1046,42 @@ def provider_groups(dev, gen):
         "LUT r, then r mod L and 2 masks at 49152": [draw(49152, 15)],
         "LUT shares at 49152": [share(49152, 16)] + [
             Segment("zero", ring, 117 + i, 49152) for i in range(2)],
+        **ttp_groups(dev, gen, keys),
     }
+
+
+def ttp_groups(dev, gen, keys):
+    """The TTP dealer's grouped launches (ttp_fresh, ttp_plain) at the
+    path's sizes, 2 and 3 parties, additive and XOR, fresh and given
+    plaintexts, and an odd length."""
+    from curl_tpu_torch.kernels.philox import Segment
+
+    dealer = keys["dealer"]
+    out = {}
+    for parties in (2, 3):
+        ttp = keys[f"ttp{parties}"]
+
+        def fresh(n, bits, c, how="add", emit=False):
+            return Segment("ttp_fresh", ttp, 200 + c, n, how=how, dealer=dealer, draw_counter=c,
+                           draw_kbits=bits, emit=emit)
+
+        def share(n, c, how="add"):
+            return Segment("ttp_plain", ttp, 200 + c, n, how=how, plain=rand_i64(gen, (n,), dev))
+
+        out.update({
+            f"TTP triple (64,768)@(768,3072) a, b, {parties} parties": [
+                fresh(64 * 768, 64, 20, emit=True), fresh(768 * 3072, 64, 21, emit=True)],
+            f"TTP triple c (64,3072), {parties} parties": [share(64 * 3072, 22)],
+            f"TTP EGK l-m, m, 1 at 196608, {parties} parties": [
+                fresh(196608, 48, 23), fresh(196608, 16, 24), fresh(196608, 1, 25)],
+            f"TTP B2A at an odd 196607, {parties} parties": [
+                fresh(196607, 1, 26), fresh(196607, 1, 26, how="xor")],
+            f"TTP binary triple shares at an odd 4097, {parties} parties": [
+                share(4097, 27, "xor"), share(4097, 28, "xor"), share(4097, 29, "xor")],
+            f"TTP one-hot r, (64, 50257), {parties} parties": [
+                share(64, 30), share(64 * 50257, 31)],
+        })
+    return out
 
 
 def random_segments(g, count, dev):
@@ -1019,39 +1089,46 @@ def random_segments(g, count, dev):
     additive and XOR, odd n and n = 1, rows 1-8, kbits 1, 20 and 64; their
     random keys in slots of one key table of their own."""
     from curl_tpu_torch.kernels.keys import KeyTable
-    from curl_tpu_torch.kernels.philox import HOWS, MAX_ROWS, WHATS, Segment
+    from curl_tpu_torch.kernels.philox import FRESH, HOWS, MAX_ROWS, TTP, WHATS, Segment
+
+    kinds = list(WHATS) + list(TTP)
 
     table = KeyTable(count * (MAX_ROWS + 1))
     out = []
     for i in range(count):
-        what = list(WHATS)[i % len(WHATS)]
-        how = "add" if what == "draw" else HOWS[(i // len(WHATS)) % 2]
+        what = kinds[i % len(kinds)]
+        how = "add" if what == "draw" else HOWS[(i // len(kinds)) % 2]
         n = int(g.choice([1, 3, 257, 1001, 65_537, 1_000_003]))
         rows = 1 if i == 0 else 2 if what != "draw" and i % 3 else int(g.integers(1, MAX_ROWS + 1))
         keys = tuple(int(k) * 2 + 1 for k in g.integers(0, 2 ** 63, size=rows))
-        kbits = int(g.choice([1, 20, 64])) if what == "draw" or how == "xor" else 64
+        kbits = int(g.choice([1, 20, 64])) if what == "draw" or (
+            how == "xor" and what not in TTP) else 64
         plain = None
-        if what == "plain":
+        if what in ("plain", "ttp_plain"):
             plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=n)).to(dev)
         elif what == "plain_lane":
             plain = torch.from_numpy(g.integers(-2 ** 63, 2 ** 63 - 1, size=(rows, n))).to(dev)
         base = i * (MAX_ROWS + 1)
         table.write(keys, base + 1)
         counter, src = int(g.integers(0, 2 ** 62)), int(g.integers(0, min(rows, 2)))
+        src = 0 if what in TTP else src
         table.write([int(g.integers(0, 2 ** 63))], base)
         out.append(Segment(what, table.ref(base + 1, rows), counter, n, how=how, kbits=kbits,
                            src=src, plain=plain,
-                           dealer=table.ref(base) if what == "fresh" else None, draw_counter=i,
+                           dealer=table.ref(base) if what in FRESH else None, draw_counter=i,
                            draw_kbits=int(g.choice([1, 20, 64])),
-                           emit=what == "fresh" and i % 2 == 1))
+                           emit=what in FRESH and i % 2 == 1))
     return out
 
 
-def _check_group(name, segments, dev):
+def _check_group(name, segments, dev, want=None):
+    """The grouped launch against ``want`` (plain_philox_group's outputs,
+    computed here where None), output by output."""
     from curl_tpu_torch.kernels import philox
 
     got = philox.philox_group(segments, dev)
-    want = philox.plain_philox_group(segments, dev)
+    if want is None:
+        want = philox.plain_philox_group(segments, dev)
     for i, (a, b) in enumerate(zip(got, want)):
         # an emitted fresh draw's output is the pair (shares, value)
         a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
@@ -1129,8 +1206,9 @@ def check_philox(dev, gen):
     for rep in range(3):
         segments = random_segments(g, philox.MAX_SEGMENTS, dev)
         _check_group(f"mixed {rep}", segments, dev)
-    log(f"[kernels] philox group: 3 x {philox.MAX_SEGMENTS} mixed segments (every kind, additive "
-        "and XOR, n from 1 to 1000003, rows 1-8, kbits 1/20/64): bit-exact vs plain")
+    log(f"[kernels] philox group: 3 x {philox.MAX_SEGMENTS} mixed segments (every kind, the TTP "
+        "ones too, additive and XOR, n from 1 to 1000003, rows 1-8, kbits 1/20/64): bit-exact "
+        "vs plain")
     torch.cuda.empty_cache()
 
 
@@ -1674,18 +1752,21 @@ PORT_KERNEL_NAMES = ("ring_mm_kernel", "philox_group_kernel", "fused_mul_kernel"
                      "seed_expand_kernel", "open_flat_kernel", "open_tile_kernel")
 
 
-def profile_forward(model, xe, best_s, tag="profile", top=10, call=None):
+def profile_forward(model, xe, best_s, tag="profile", top=10, call=None, shapes=True):
     """One more forward under torch.profiler (``call()`` in place of
     ``model(xe)`` where given): the device's busy time (sum of kernel self
     time) against the best unprofiled latency, the kernels that take the
-    most of it and, for each of those that is not the port's, the PyTorch
-    ops (with their input shapes) that launched it. Returns the busy ms
-    (None where the profiler saw no device time)."""
+    most of it and, for each of those that is not the port's (with
+    ``shapes``: the host's ops recorded too), the PyTorch ops (with their
+    input shapes) that launched it. Returns the busy ms (None where the
+    profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    # without shapes only the device's kernels are recorded (a forward of
+    # 40k-90k launches records several host ops for each)
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if shapes else [])
+    with profile(activities=activities, record_shapes=shapes) as prof:
         model(xe) if call is None else call()
         torch.cuda.synchronize()
     # device-side events only: a host op's device time repeats its kernels'
@@ -1700,14 +1781,14 @@ def profile_forward(model, xe, best_s, tag="profile", top=10, call=None):
         f"{sum(e.count for e in events)} kernel launches")
     # each kernel's launching op (the innermost) and its input shapes
     launched_by = {}
-    for e in prof.events():
+    for e in prof.events() if shapes else ():
         for k in e.kernels:
             key = (k.name, e.name, str(e.input_shapes))
             us, n = launched_by.get(key, (0.0, 0))
             launched_by[key] = (us + k.duration, n + 1)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
-        if any(name in e.key for name in PORT_KERNEL_NAMES):
+        if not shapes or any(name in e.key for name in PORT_KERNEL_NAMES):
             continue
         ops = sorted(((us, n, op, shapes) for (name, op, shapes), (us, n) in launched_by.items()
                       if name == e.key), reverse=True)
@@ -2285,17 +2366,20 @@ def run_compressed(fw, bench_stats, gen):
     return res, failures
 
 
-def run_neo(dev, gen, tag="neo", model="GPTNeo", bound=NEO_SCALE_FREE_L2, rounds=None):
+def run_neo(dev, gen, tag="neo", model="GPTNeo", bound=NEO_SCALE_FREE_L2, rounds=None,
+            blocks=None):
     """Phase 4d (4f): GPT-Neo 1.3B's (2.7B's) geometry at full width
     through GPT.build_compressed (chunked block linears at their default),
-    under bench.py's settings for the model; ``rounds``, where given, the
-    count the forward must equal."""
+    under bench.py's settings for the model, at ``blocks`` blocks (the
+    model's depth where None); ``rounds``, where given, the count the
+    forward must equal."""
     import curl_tpu_torch as ct
     from curl_tpu_torch import models
     from curl_tpu_torch.config import cfg
     from curl_tpu_torch.nn.module import ChunkedLinear
 
-    geom = getattr(models, model).GEOM
+    geom = dict(getattr(models, model).GEOM)
+    geom["num_blocks"] = blocks or geom["num_blocks"]
     d, heads, blocks, vocab = (geom[k] for k in ("embed_dim", "num_heads", "num_blocks",
                                                  "vocab_size"))
     sd = SeededGPTState(1234, SEQ, blocks, d, vocab)
@@ -4654,8 +4738,277 @@ def run_generate(sd):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the protocol matrix, GPT-2 under each layout
+# ---------------------------------------------------------------------------
+
+# the layouts: the config keys that select each (over configs/default.yaml)
+# and its parties
+PROTOCOL_LAYOUTS = {
+    "rss3": ({"mpc.protocol": "replicated"}, 3),
+    "tfp3": ({}, 3),
+    "ttp2": ({"mpc.provider": "TTP"}, 2),
+    "active2": ({"mpc.active_security": True}, 2),
+}
+# The final-LayerNorm hidden state's scale-free relative L2 bound of each
+# layout, and the rounds and bytes of one forward: fixed before the card
+# ran them, from `python3 scripts/torch_protocols_bound.py readings` (12
+# blocks, session seeds 11, 1 and 2: 1.5 times the worst reading, at most
+# phase 4's 0.15; PERF.md §6) and `... count`
+PROTOCOL_BOUNDS = {"rss3": 0.15, "ttp2": 0.15, "tfp3": 0.15, "active2": 0.15}
+PROTOCOL_COUNTS = {"rss3": (3487, 4482159104), "ttp2": (7375, 8258725888),
+                   "tfp3": (3321, 5348521472), "active2": (3673, 5368139344)}
+PROTOCOL_REPS = 3
+# the kernels the shipped configuration leaves idle in every layout (K5-K8):
+# the fused knobs are null, and the compressed weights' open is 2PC
+PROTOCOL_IDLE = ("fused_mul", "ltz", "max_step", "seed_expand", "open")
+
+
+def gpt2_tokens():
+    """Phase 4's token ids, drawn as bench.py draws them: (1, SEQ), below 1000."""
+    return np.random.default_rng(0).integers(0, 1000, size=(1, SEQ)).astype(np.float64)
+
+
+def run_protocols(dev):
+    """Phase 14: GPT-2 at full width (phase 4's weights and tokens,
+    materialized, configs/default.yaml) under rss3, ttp2, tfp3 and active2,
+    each a path of its own ("protocols <layout>"); rss3 also captured by
+    compile_parties, active2 also run with a tampered triple. The model is
+    encrypted once for each number of parties (a sharing does not depend
+    on the dealer, the protocol or the security mode). Returns ({path:
+    (calls, launches, by_op)}, {layout: readings}, {path: the capture's
+    readings}, failures)."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+    from curl_tpu_torch.models import GPT2, load_numpy_state_dict
+
+    blocks, heads, d, vocab = (GPT2.GEOM[k] for k in ("num_blocks", "num_heads", "embed_dim",
+                                                      "vocab_size"))
+    sd = random_gpt2_state(np.random.default_rng(1234), SEQ, blocks, d=d, vocab=vocab)
+    tokens = gpt2_tokens()
+    ref = plain_gpt_forward(sd, tokens.astype(np.int64), heads, blocks, dev,
+                            head=False)[0].cpu().numpy()
+    paths, readings, captured, failures = {}, {}, {}, []
+    model, encrypted_for = None, None
+    for layout, (config, parties) in PROTOCOL_LAYOUTS.items():
+        tag = f"protocols {layout}"
+        with cfg.temp_override(config):
+            ct.init(world_size=parties, seed=SEED)
+            if encrypted_for != parties:
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                model = load_numpy_state_dict(GPT2(seq_len=SEQ), sd)
+                model.encrypt(src=0)
+                torch.cuda.synchronize()
+                encrypted_for = parties
+                log(f"[{tag}] GPT-2 encrypted for {parties} parties in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            xe = ct.cryptensor(tokens, precision=0)
+            log(f"[{tag}] {parties} parties, config {config or 'the shipped one'}")
+            res, more = layout_forward(tag, layout, model, xe, ref)
+            failures += more
+            if layout == "rss3":
+                captured[tag], more = capture_layout(tag, parties, model, xe, ref, res)
+                failures += more
+            if layout == "active2":
+                failures += tampered_forward(tag, model, xe, ref)
+        paths[tag] = (res.pop("calls"), res["launches"], res["by_op"])
+        readings[layout] = {k: v for k, v in res.items() if k != "by_op"}
+        del xe, res
+        phase_done(f"phase 14 {layout}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ct.init(world_size=2, seed=SEED)
+    return paths, readings, captured, failures
+
+
+def layout_forward(tag, layout, model, xe, ref):
+    """One layout's forward: a warm-up recording every launch signature and
+    keeping the final-LayerNorm hidden state, PROTOCOL_REPS timed forwards
+    (the last with the launch counts, CommStats and peak memory reset just
+    before it and read just after), one profiled; its checks."""
+    import curl_tpu_torch as ct
+
+    seen = []
+    hook = model.ln.register_forward_hook(lambda mod, inp, out: seen.append(out))
+    t0 = time.perf_counter()
+    try:
+        with recording_launches() as calls:
+            out = model(xe)
+    finally:
+        hook.remove()
+    hidden = seen[-1].get_plain_text()
+    log(f"[{tag}] warm-up forward {time.perf_counter() - t0:.2f} s")
+    lat = []
+    for i in range(PROTOCOL_REPS):
+        last = i == PROTOCOL_REPS - 1
+        if last:
+            reset_launches()
+            ct.reset_communication_stats()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(xe)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        if last:
+            launches, by_op, by_mode = read_launches()
+            stats = ct.get_communication_stats()
+            peak = torch.cuda.max_memory_allocated()
+    out = out.get_plain_text()
+    best = min(lat)
+    st = hidden_stats(hidden, ref)
+    bound = PROTOCOL_BOUNDS[layout]
+    rounds, nbytes = PROTOCOL_COUNTS[layout]
+    log(f"[{tag}] latencies {', '.join(f'{x:.4f}' for x in lat)} s; {SEQ / best:.1f} tokens/s "
+        f"(best)")
+    log(f"[{tag}] one forward: {stats['rounds']} rounds, {stats['bytes']} bytes per party; "
+        f"calls {stats['calls']}")
+    log(f"[{tag}] one forward: launches {launches}; philox by mode {by_mode}")
+    log(f"[{tag}] peak device memory {peak / 2**30:.2f} GiB in the forward, "
+        f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before it")
+    log(f"[{tag}] final-LN hidden: {fmt_stats(st)} (bounds: max {HIDDEN_STATE_ATOL}, scale-free "
+        f"rel L2 {bound})")
+    busy = profile_forward(model, xe, best, tag=f"profile {tag}", top=6, shapes=False)
+    checks = {
+        f"output finite, (1, {SEQ}, vocab)": out.shape == (1, SEQ, model.fc.out_features)
+        and np.isfinite(out).all(),
+        f"final-LN hidden within max |err| {HIDDEN_STATE_ATOL} and scale-free rel L2 {bound}":
+            np.isfinite(hidden).all() and st["max_abs"] <= HIDDEN_STATE_ATOL
+            and st["scale_free_l2"] <= bound,
+        f"rounds and bytes the CPU count {rounds}, {nbytes}":
+            (stats["rounds"], stats["bytes"]) == (rounds, nbytes),
+        "ring_mm_acc and philox launched": launches["ring_mm_acc"] > 0 and launches["philox"] > 0,
+        f"{', '.join(PROTOCOL_IDLE)} (K5-K8) not launched":
+            all(launches[k] == 0 for k in PROTOCOL_IDLE),
+        "recorded launches equal counted": recorded_launches(calls) == (launches, by_op),
+    }
+    if layout == "rss3":
+        checks["every ring_mm_acc launch one replicated product of 3 pairs"] = (
+            launches[MASKED] == launches["ring_mm_acc"])
+    else:
+        checks["ring_mm (the dealer's products) launched"] = launches["ring_mm"] > 0
+    if layout == "ttp2":
+        checks["the TTP segments launched"] = any("ttp" in mode for mode in by_mode)
+    failures = report_checks(tag, checks)
+    return dict(calls=calls, launches=launches, by_op=by_op, stats=stats, best_s=best,
+                latencies=lat, busy_ms=busy, peak=peak, held=held, hidden=st), failures
+
+
+def capture_layout(tag, parties, model, xe, ref, res):
+    """rss3 through compile_parties at its parties: the capture (counts
+    reset just before it and read just after), replays at fresh seeds, and
+    the forward eagerly under the capture seed's keys from the capture's
+    draw counter: bit-identical shares, equal CommStats and launches."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch import random as crandom
+
+    ctag = f"captured {tag}"
+    forward, params = hidden_forward(model)
+    step = ct.compile_parties(forward, parties)
+    reset_launches()
+    ct.reset_communication_stats()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    first = step(CAPTURE_SEED, params, xe)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, by_op, _ = read_launches()
+    stats = ct.get_communication_stats()
+    resident = torch.cuda.memory_allocated() - held
+    lat = []
+    for i in range(REPLAYS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(CAPTURE_SEED + 1 + i, params, xe)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    best = min(lat)
+    resume = crandom.counter()
+    crandom.set_counter(step.counter)
+    reset_launches()
+    ct.reset_communication_stats()
+    with ct.parallel.mpc_context(crandom.make_party_keys(CAPTURE_SEED, parties), parties):
+        eager = forward(params, xe)
+    eager_launches, eager_by_op, _ = read_launches()
+    eager_stats = ct.get_communication_stats()
+    crandom.set_counter(resume)
+    busy = profile_forward(None, None, best, tag=f"profile, {ctag}", top=6, shapes=False,
+                           call=lambda: step(CAPTURE_SEED + REPLAYS + 1, params, xe))
+    st = hidden_stats(hidden_of(first), ref)
+    log(f"[{ctag}] first call {first_s:.2f} s: warm-up {step.warmup_s:.2f} s, capture "
+        f"{step.capture_s:.2f} s; the graph holds {resident / 2**30:.3f} GiB")
+    log(f"[{ctag}] replay latencies {', '.join(f'{x:.4f}' for x in lat)} s: best {best:.4f} s, "
+        f"{SEQ / best:.1f} tokens/s; eager best {res['best_s']:.4f} s")
+    log(f"[{ctag}] the capture: {stats['rounds']} rounds, {stats['bytes']} bytes, launches "
+        f"{launches}; final-LN hidden {fmt_stats(st)}")
+    checks = {
+        "replay at the capture seed bit-identical to the eager forward at its keys and counter":
+            same(first, eager),
+        "the capture's rounds and bytes equal the eager forward's and the timed one's":
+            (stats["rounds"], stats["bytes"]) == (eager_stats["rounds"], eager_stats["bytes"])
+            == (res["stats"]["rounds"], res["stats"]["bytes"]),
+        "the capture's launches equal the eager forward's and the timed one's":
+            (launches, by_op) == (eager_launches, eager_by_op) == (res["launches"], res["by_op"]),
+        f"hidden state within the bound {PROTOCOL_BOUNDS['rss3']}":
+            st["scale_free_l2"] <= PROTOCOL_BOUNDS["rss3"] and st["max_abs"] <= HIDDEN_STATE_ATOL,
+    }
+    failures = report_checks(ctag, checks)
+    chains = {name: sum(n for t, n in by_op.items() if is_tag(t))
+              for name, is_tag in CHAIN_TAGS.items()}
+    out = dict(launches=launches, chains=chains, best_s=best, eager_s=res["best_s"],
+               busy_ms=busy, capture_s=step.capture_s, peak=resident)
+    del step, first, eager
+    return out, failures
+
+
+def tampered_forward(tag, model, xe, ref):
+    """active2 with a tampered triple: each c off by one in party 0's first
+    element. The sacrifice check must poison the forward."""
+    from curl_tpu_torch.mpc import get_default_provider
+
+    provider = get_default_provider()
+    honest = provider.generate_additive_triple
+
+    def tampered(*args, **kwargs):
+        a, b, c = honest(*args, **kwargs)
+        share = c.share.clone()
+        share.view(share.shape[0], -1)[0, 0] += 1
+        return a, b, c.with_share(share)
+
+    provider.generate_additive_triple = tampered
+    try:
+        hidden = private_hidden(model, xe).get_plain_text()
+    finally:
+        del provider.generate_additive_triple
+    st = hidden_stats(hidden, ref)
+    bound = PROTOCOL_BOUNDS["active2"]
+    log(f"[{tag}] a tampered triple: final-LN hidden {fmt_stats(st)}")
+    return report_checks(tag, {
+        f"a tampered triple poisons the forward (scale-free rel L2 above 3 x {bound})":
+            not st["scale_free_l2"] <= 3 * bound})
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: every kernel in the launch signatures the forward passed
 # ---------------------------------------------------------------------------
+
+def timed_plain(plain):
+    """(plain()'s output, its device ms as ``cuda_ms(plain, 1, cold=True)``
+    gives them): the timed run's output serves the bit-exact check, so that
+    a signature's plain version runs twice, not three times."""
+    out = []
+
+    def run():
+        out[:] = [plain()]
+
+    ms = cuda_ms(run, 1, cold=True)
+    return out[0], ms
+
 
 def _distinct_numel(shape, stride):
     """Elements a tensor view reads once: broadcast (stride-0) dims count once."""
@@ -4732,8 +5085,10 @@ def time_ring_mm(sig, dev, gen):
     pairs = [(_strided_i64(gen, sa, st_a, dev), _strided_i64(gen, sb, st_b, dev))
              for sa, st_a, sb, st_b in sig]
     got = ring_mm.ring_mm(pairs)
-    if not torch.equal(got, ring_mm.plain(pairs)):
+    want, plain_ms = timed_plain(lambda: ring_mm.plain(pairs))
+    if not torch.equal(got, want):
         raise AssertionError(f"ring_mm at the path layout {sig}: kernel != plain")
+    del want
     dense = [(a.contiguous(), b.contiguous()) for a, b in pairs]
     nbytes = sum(_distinct_numel(sa, st_a) + _distinct_numel(sb, st_b)
                  for sa, st_a, sb, st_b in sig) * 8 + got.numel() * 8
@@ -4747,7 +5102,7 @@ def time_ring_mm(sig, dev, gen):
                       f"{g['out_tiles'] * g['splits']} blocks", **other,
                 ms=cuda_ms(lambda: ring_mm.ring_mm(pairs), 5, cold=True),
                 dense_ms=cuda_ms(lambda: ring_mm.ring_mm(dense), 5, cold=True),
-                plain_ms=cuda_ms(lambda: ring_mm.plain(pairs), 1, cold=True),
+                plain_ms=plain_ms,
                 t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
                 t_ops=36 * 2 * macs / INT8_OPS_PER_S * 1e3)
 
@@ -4756,14 +5111,17 @@ def philox_work(sig):
     """(bytes, 32-bit operations) of one grouped philox launch: every output
     row written once, a given plaintext's row read once; one Philox call
     per pair and per stream (a fresh draw's own stream included)."""
-    nbytes = sum(((keys + emit) * n + (n if what in ("plain", "plain_lane") else 0)) * 8
-                 for what, _, keys, n, _, _, _, emit in sig)
+    nbytes = sum(((keys + emit) * n + (n if what in ("plain", "plain_lane", "ttp_plain") else 0))
+                 * 8 for what, _, keys, n, _, _, _, emit in sig)
     return nbytes, philox_calls(sig) * PHILOX_OPS
 
 
 def philox_calls(sig):
-    """Philox calls of one grouped launch: one per pair and per stream."""
-    return sum((keys + (what == "fresh")) * ((n + 1) // 2) for what, _, keys, n, *_ in sig)
+    """Philox calls of one grouped launch: one per pair and per stream
+    (a fresh draw's own stream included; a TTP sharing draws no stream for
+    party 0)."""
+    return sum((keys + what.endswith("fresh") - what.startswith("ttp")) * ((n + 1) // 2)
+               for what, _, keys, n, *_ in sig)
 
 
 def philox_segments(sig, dev, gen):
@@ -4777,13 +5135,13 @@ def philox_segments(sig, dev, gen):
     segments = []
     for i, (what, how, rows, n, kbits, src, draw_kbits, emit) in enumerate(sig):
         plain = None
-        if what == "plain":
+        if what in ("plain", "ttp_plain"):
             plain = rand_i64(gen, (n,), dev)
         elif what == "plain_lane":
             plain = rand_i64(gen, (rows, n), dev)
         segments.append(Segment(
             what, crandom.TABLE.ref(keys["ring"].slot, rows), 3 + i, n, how=how, kbits=kbits,
-            src=src, plain=plain, dealer=keys["dealer"] if what == "fresh" else None,
+            src=src, plain=plain, dealer=keys["dealer"] if what.endswith("fresh") else None,
             draw_counter=50 + i, draw_kbits=draw_kbits, emit=emit))
     return segments
 
@@ -4794,10 +5152,12 @@ def time_philox(sig, dev, gen):
     from curl_tpu_torch.kernels import philox
 
     segments = philox_segments(sig, dev, gen)
-    _check_group(_describe("philox", sig), segments, dev)
+    want, plain_ms = timed_plain(lambda: philox.plain_philox_group(segments, dev))
+    _check_group(_describe("philox", sig), segments, dev, want)
+    del want
     nbytes, ops = philox_work(sig)
     return dict(ms=cuda_ms(lambda: philox.philox_group(segments, dev), 5, cold=True),
-                plain_ms=cuda_ms(lambda: philox.plain_philox_group(segments, dev), 1, cold=True),
+                plain_ms=plain_ms,
                 t_bytes=nbytes / HBM_BYTES_PER_S * 1e3, t_ops=ops / INT32_OPS_PER_S * 1e3)
 
 
@@ -4808,11 +5168,13 @@ def time_fused(kind, sig, count, dev, gen):
     spec = fused_spec(kind, sig)
     ops = [_strided_i64(gen, shape, st, dev) for shape, st in spec["operands"]]
     got = fused_run(spec, ops, count)
-    if not torch.equal(got, fused_run(spec, ops, count, plain=True)):
+    want, plain_ms = timed_plain(lambda: fused_run(spec, ops, count, plain=True))
+    if not torch.equal(got, want):
         raise AssertionError(f"{fused_name(spec)} at the path signature {sig}: kernel != plain")
+    del want
     nbytes, nops = fused_work(spec)
     return dict(ms=cuda_ms(lambda: fused_run(spec, ops, count), 5, cold=True),
-                plain_ms=cuda_ms(lambda: fused_run(spec, ops, count, plain=True), 1, cold=True),
+                plain_ms=plain_ms,
                 t_bytes=nbytes / HBM_BYTES_PER_S * 1e3, t_ops=nops / INT32_OPS_PER_S * 1e3)
 
 
@@ -4833,9 +5195,11 @@ def time_seed(sig, dev, gen):
     def run(plain=False):
         return seed_run(mode, x, plain, b, transposed)
 
-    if not torch.equal(run(), run(plain=True)):
+    want, plain_ms = timed_plain(lambda: run(True))
+    if not torch.equal(run(), want):
         raise AssertionError(f"seed_expand at the path signature {sig}: kernel != plain")
-    return dict(ms=cuda_ms(run, 5, cold=True), plain_ms=cuda_ms(lambda: run(True), 1, cold=True),
+    del want
+    return dict(ms=cuda_ms(run, 5, cold=True), plain_ms=plain_ms,
                 t_bytes=work[0] / HBM_BYTES_PER_S * 1e3, t_ops=work[1] / INT32_OPS_PER_S * 1e3)
 
 
@@ -4877,7 +5241,7 @@ def _describe(kind, sig):
         return " + ".join(
             f"{what}{'' if what == 'draw' else '/' + how} rows {keys}{'+1' if emit else ''} n {n}"
             f"{'' if kbits == 64 else f' kbits {kbits}'}"
-            f"{f' draw_kbits {dk}' if what == 'fresh' and dk != 64 else ''}"
+            f"{f' draw_kbits {dk}' if what.endswith('fresh') and dk != 64 else ''}"
             for what, how, keys, n, kbits, _, dk, emit in sig)
     if kind == "seed_expand":
         return f"{sig[0]} n {sig[1]} parties {sig[2]}"
@@ -5036,10 +5400,10 @@ def main():
     check_open(dev, gen)
     phase_done("phases 1-3c")
 
-    kernels, failures = run_paths(dev, gen)
+    kernels, protocols, failures = run_paths(dev, gen)
     if failures:
         raise AssertionError("; ".join(failures))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "protocols": protocols}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5050,7 +5414,8 @@ def main():
 def run_paths(dev, gen):
     """Phases 3d-5: the function library, each path's forward, then every
     launch signature any of them recorded, held bit-exact and timed; (the
-    kernels' JSON entries, the failed checks)."""
+    kernels' JSON entries, phase 14's entries by layout, the failed
+    checks)."""
     # each path: the signatures its warm-up forward recorded, and the launch
     # counts of one forward, reset just before it and read just after
     functions, failures = run_functions()
@@ -5075,11 +5440,12 @@ def run_paths(dev, gen):
     del forward
     torch.cuda.empty_cache()
     phase_done("phases 4, 4b, 4e, 4c")
-    neo, neo_failures = run_neo(dev, gen)
+    neo, neo_failures = run_neo(dev, gen, blocks=NEO_BLOCKS)
     failures += neo_failures
     paths["neo"] = (neo["calls"], neo["launches"], neo["by_op"])
     neo_large, nl_failures = run_neo(dev, gen, tag="neo_large", model="GPTNeoLarge",
-                                     bound=NEO_LARGE_SCALE_FREE_L2, rounds=NEO_LARGE_ROUNDS)
+                                     bound=NEO_LARGE_SCALE_FREE_L2, rounds=NEO_LARGE_ROUNDS,
+                                     blocks=NEO_LARGE_BLOCKS)
     failures += nl_failures
     paths["neo_large"] = (neo_large["calls"], neo_large["launches"], neo_large["by_op"])
     phase_done("phases 4d, 4f")
@@ -5125,12 +5491,25 @@ def run_paths(dev, gen):
     failures += convert_failures
     paths.update(convert_paths)
     phase_done("phase 13")
+    # phase 14: GPT-2 under rss3, ttp2, tfp3 and active2; before phase 5,
+    # which holds its launch signatures too
+    protocol_paths, protocols, protocol_captured, protocol_failures = run_protocols(dev)
+    failures += protocol_failures
+    paths.update(protocol_paths)
+    phase_done("phase 14")
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
     rows = time_signatures({p: c for p, (c, _, _) in paths.items()}, dev, gen)
     totals = {p: path_totals(p, c, rows) for p, (c, _, _) in paths.items()}
     phase_done("phase 5")
+    for layout in PROTOCOL_LAYOUTS:
+        t = ttp_segment_totals(paths[f"protocols {layout}"][0], rows)
+        if t["launches"]:
+            protocols[layout]["ttp_segments"] = t
+            log(f"[path] protocols {layout} philox launches with a TTP segment: {t['launches']}, "
+                f"{t['ms']:.3f} ms (bound {t['bound_ms']:.4f} ms, {t['ms'] / t['bound_ms']:.2f}x; "
+                f"plain {t['plain_ms']:.1f} ms)")
     for p, t in totals.items():
         log(f"[path] {p} ring_mm and ring_mm_acc against their bounds: " + ", ".join(
             f"{name} {t[name]['ms']:.3f} ms = {t[name]['ms'] / t[name]['bound_ms']:.2f}x "
@@ -5145,7 +5524,7 @@ def run_paths(dev, gen):
     # through compile_parties, captured once and replayed; each model freed
     # after
     captured = {GENERATE_PATH: generated["captured"], **cached.pop("captured"), **resnet_captured,
-                TRAIN_PATH: train_captured, **convert_captured}
+                TRAIN_PATH: train_captured, **convert_captured, **protocol_captured}
     del generated
     for p, res in (("compressed", compressed), ("neo", neo), ("neo_large", neo_large)):
         captured[p], cap_failures = run_captured(p, res)
@@ -5186,7 +5565,35 @@ def run_paths(dev, gen):
                    for p, t in totals.items() if name in t},
             captured={p: c["launches"].get(name, c["chains"].get(name))
                       for p, c in captured.items()}))
-    return kernels, failures
+    return kernels, protocol_entries(protocols, protocol_captured), failures
+
+
+def ttp_segment_totals(calls, rows):
+    """Over one path's philox launches that carry a TTP segment: launches,
+    card ms, bound ms and plain ms (phase 5's rows)."""
+    mine = [(n, rows["philox"][sig]) for sig, n in calls["philox"].items()
+            if any(seg[0].startswith("ttp") for seg in sig)]
+    return dict(launches=sum(n for n, _ in mine), ms=sum(n * r["ms"] for n, r in mine),
+                bound_ms=sum(n * max(r["t_bytes"], r["t_ops"]) for n, r in mine),
+                plain_ms=sum(n * r["plain_ms"] for n, r in mine))
+
+
+def protocol_entries(protocols, captured):
+    """Phase 14's readings for the JSON line, one entry a layout."""
+    out = {}
+    for layout, r in protocols.items():
+        config, parties = PROTOCOL_LAYOUTS[layout]
+        cap = captured.get(f"protocols {layout}")
+        out[layout] = dict(
+            parties=parties, config=config, rounds=r["stats"]["rounds"], bytes=r["stats"]["bytes"],
+            best_s=r["best_s"], latencies_s=r["latencies"], busy_ms=r["busy_ms"],
+            peak_gib=r["peak"] / 2**30, above_held_gib=(r["peak"] - r["held"]) / 2**30,
+            scale_free_l2=r["hidden"]["scale_free_l2"], max_abs_err=r["hidden"]["max_abs"],
+            bound=PROTOCOL_BOUNDS[layout], launches=r["launches"],
+            ttp_segments=r.get("ttp_segments"),
+            captured=None if cap is None else dict(best_s=cap["best_s"], busy_ms=cap["busy_ms"],
+                                                   capture_s=cap["capture_s"]))
+    return out
 
 if __name__ == "__main__":
     main()

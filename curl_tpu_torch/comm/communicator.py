@@ -8,6 +8,7 @@ parties are the explicit leading axis of every share tensor, ``(P, ...)``, so
   --------------------------------------------------------------
   all_reduce(SUM)  / lax.psum           all_sum  -> sum over dim 0
   all_reduce(BXOR) / all_gather + xor   all_xor  -> xor over dim 0
+  isend/irecv ring / lax.ppermute       ppermute -> roll over dim 0
 
 and a revealed value is a public tensor without the party axis.
 
@@ -138,6 +139,19 @@ def all_gather(x):
     if _WORLD_SIZE >= 2:
         _count("all_gather", [x])
     return x
+
+
+def ppermute(x, shift: int = 1):
+    """Ring pass (curl_tpu/comm/communicator.py:235-241): party p sends its
+    share to party p + shift and receives party p - shift's, so row p of
+    the result is row p - shift of ``x``. One round of one party's share;
+    a list of (P, ...) tensors is one round."""
+    if _WORLD_SIZE < 2:
+        return x
+    tensors = list(x) if isinstance(x, (list, tuple)) else [x]
+    _count("ppermute", tensors)
+    outs = [torch.roll(t, shift, dims=0) for t in tensors]
+    return outs if isinstance(x, (list, tuple)) else outs[0]
 
 
 def scatter(stacked, src: int):

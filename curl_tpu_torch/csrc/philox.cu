@@ -24,12 +24,21 @@
 //   fresh       v = stream(dealer, c_draw) >> (64 - draw_kbits), drawn in
 //               the thread that shares it; with `emit` also written to its
 //               own (n,) output (the dealer's plaintext for c = op(a, b), r^2)
+//   ttp_plain   as plain, and ttp_fresh as fresh, but shared by the trusted
+//               third party (below)
 // shared either additively,
 //   out[p] = stream(ring_{p-1}, c) - stream(ring_p, c) + [p == src] v,
 // or by XOR,
 //   out[p] = (stream(ring_{p-1}, c) ^ stream(ring_p, c)) >> (64 - kbits)
 //            ^ [p == src] v.
-// The PRZS rows telescope to zero over the parties. With two parties each
+// The PRZS rows telescope to zero over the parties. A TTP segment's keys are
+// the parties' own `ttp` seeds instead: parties p >= 1 take their stream,
+// party 0 the rest,
+//   out[p] = stream(ttp_p, c)   (p >= 1),
+//   out[0] = v - sum_{p>=1} out[p]   (or v ^ XOR_{p>=1} out[p]),
+// the reference's TTP dealer (curl_tpu/mpc/provider/ttp_provider.py:41-66),
+// made in one thread an element pair, with party 0's row accumulated in
+// registers while the others are written. With two parties each
 // ring stream is generated once per element and serves both parties that
 // hold it (a specialized path); with more, the last ring stream is drawn
 // twice, as party 0's prev and the last party's cur, so that a thread keeps
@@ -86,7 +95,7 @@ constexpr int kMinBlocks = 4;  // resident blocks an SM (__launch_bounds__)
 constexpr long long kMaxN = (1ll << 32) - 1;  // elements a row: pair indices fit 31 bits
 constexpr int kRateCalls = 16;  // Philox calls a thread of philox_rate_kernel
 
-enum What { kDraw = 0, kZero = 1, kPlain = 2, kPlainLane = 3, kFresh = 4 };
+enum What { kDraw = 0, kZero = 1, kPlain = 2, kPlainLane = 3, kFresh = 4, kTtpPlain = 5, kTtpFresh = 6 };
 
 }  // namespace
 
@@ -94,10 +103,10 @@ enum What { kDraw = 0, kZero = 1, kPlain = 2, kPlainLane = 3, kFresh = 4 };
 struct Segment {
   unsigned long long* out;           // (rows, n)
   unsigned long long* value;         // emit: (n,), v itself
-  const unsigned long long* plain;   // kPlain: (n,); kPlainLane: (rows, n)
+  const unsigned long long* plain;   // kPlain, kTtpPlain: (n,); kPlainLane: (rows, n)
   long long n;
   unsigned long long counter;        // the draw's, or the sharing streams'
-  unsigned long long draw_counter;   // kFresh: the dealer draw's counter
+  unsigned long long draw_counter;   // kFresh, kTtpFresh: the dealer draw's counter
   int block0;                        // first block of the segment
   int blocks;
   int rows;
@@ -108,7 +117,7 @@ struct Segment {
   int src;
   int emit;
   int slot;                          // table slot of row 0's key (rows consecutive)
-  int dealer_slot;                   // kFresh: table slot of the dealer's key
+  int dealer_slot;                   // kFresh, kTtpFresh: table slot of the dealer's key
 };
 
 // A launch's segment table, at most N segments: the kernel is instantiated
@@ -235,6 +244,27 @@ __device__ __forceinline__ void share_step(const Segment& sg, const unsigned lon
   }
 }
 
+// The TTP sharing of one step: parties 1 .. rows - 1 write their own ttp
+// stream, and party 0 gets v minus (or XOR) their sum, kept in v.
+__device__ __forceinline__ void ttp_step(const Segment& sg, const unsigned long long* keys,
+                                         const Step& st, ulonglong2 (&v)[kPairs]) {
+  const long long n = sg.n;
+  const bool xs = sg.xor_share;
+#pragma unroll 1
+  for (int p = 1; p < sg.rows; ++p) {
+    ulonglong2 w[kPairs];
+    const unsigned long long key = step_key(keys[p]);
+#pragma unroll
+    for (int u = 0; u < kPairs; ++u) {
+      w[u] = stream_pair(key, sg.counter, st.j[u]);
+      v[u] = xs ? make_ulonglong2(v[u].x ^ w[u].x, v[u].y ^ w[u].y)
+                : make_ulonglong2(v[u].x - w[u].x, v[u].y - w[u].y);
+    }
+    store_row(sg.out + p * n, st, w);
+  }
+  store_row(sg.out, st, v);
+}
+
 }  // namespace
 
 template <int N>
@@ -256,7 +286,7 @@ philox_group_kernel(const __grid_constant__ Group<N> g) {
   const int t = static_cast<int>(threadIdx.x);
   if (t < sg.rows)
     keys[t] = g.table[sg.slot + t];
-  else if (t == kMaxRows && sg.what == kFresh)
+  else if (t == kMaxRows && (sg.what == kFresh || sg.what == kTtpFresh))
     keys[kMaxRows] = g.table[sg.dealer_slot];
   __syncthreads();
 
@@ -287,14 +317,14 @@ philox_group_kernel(const __grid_constant__ Group<N> g) {
     ulonglong2 v[kPairs];
 #pragma unroll
     for (int u = 0; u < kPairs; ++u) v[u] = make_ulonglong2(0ull, 0ull);
-    if (sg.what == kFresh) {
+    if (sg.what == kFresh || sg.what == kTtpFresh) {
       const int dshift = 64 - sg.draw_kbits;
       const unsigned long long dealer = step_key(keys[kMaxRows]);
 #pragma unroll
       for (int u = 0; u < kPairs; ++u)
         v[u] = shr(stream_pair(dealer, sg.draw_counter, st.j[u]), dshift);
       if (sg.emit) store_row(sg.value, st, v);
-    } else if (sg.what == kPlain || sg.what == kPlainLane) {
+    } else if (sg.what == kPlain || sg.what == kPlainLane || sg.what == kTtpPlain) {
       const unsigned long long* row = sg.plain + (sg.what == kPlainLane ? sg.src * n : 0);
       const bool vec = aligned16(row);
 #pragma unroll
@@ -309,7 +339,9 @@ philox_group_kernel(const __grid_constant__ Group<N> g) {
         }
       }
     }
-    if (sg.rows == 2)
+    if (sg.what >= kTtpPlain)
+      ttp_step(sg, keys, st, v);
+    else if (sg.rows == 2)
       share_step<2>(sg, keys, st, v);
     else
       share_step<0>(sg, keys, st, v);
@@ -362,13 +394,15 @@ extern "C" int philox_group_launch(const Segment* segs, int count, int grid,
   for (int s = 0; s < count; ++s) {
     const Segment& sg = segs[s];
     const bool share = sg.what != kDraw;
+    const bool fresh = sg.what == kFresh || sg.what == kTtpFresh;
     if (sg.rows < 1 || sg.rows > kMaxRows || sg.n < 0 || sg.n > kMaxN || sg.what < kDraw ||
-        sg.what > kFresh ||
+        sg.what > kTtpFresh || (sg.what >= kTtpPlain && sg.src != 0) ||
         sg.kbits < 1 || sg.kbits > 64 || sg.draw_kbits < 1 || sg.draw_kbits > 64 ||
         sg.block0 != next || sg.blocks < 0 || (sg.n > 0) != (sg.blocks > 0) ||
         (share && (sg.src < 0 || sg.src >= sg.rows)) ||
-        (sg.emit && (sg.what != kFresh || (sg.n > 0 && sg.value == nullptr))) ||
-        ((sg.what == kPlain || sg.what == kPlainLane) && sg.plain == nullptr) ||
+        (sg.emit && (!fresh || (sg.n > 0 && sg.value == nullptr))) ||
+        ((sg.what == kPlain || sg.what == kPlainLane || sg.what == kTtpPlain) &&
+         sg.plain == nullptr) ||
         (sg.n > 0 && sg.out == nullptr) || sg.slot < 0 || sg.dealer_slot < 0)
       return cudaErrorInvalidValue;
     next += sg.blocks;

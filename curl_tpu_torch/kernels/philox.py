@@ -14,7 +14,12 @@ fresh draw). A segment is a bare draw or a sharing (see ``Segment``):
   plain_lane  PRZS plus (or XOR) ``plain[src]`` of a (P, n) plaintext;
   fresh       PRZS plus (or XOR) the dealer's fresh draw v =
               stream(dealer, draw_counter) >> (64 - draw_kbits) on party
-              ``src``; with ``emit`` the output is the pair (shares, v).
+              ``src``; with ``emit`` the output is the pair (shares, v);
+  ttp_plain,  the trusted third party's sharing of ``plain`` (n,) or of a
+  ttp_fresh   fresh draw v: ``keys`` are the parties' own ``ttp`` seeds,
+              row p >= 1 is stream(keys[p]) and row 0 is v minus (or XOR)
+              the other rows' sum (curl_tpu/mpc/provider/ttp_provider.py:
+              41-66); ``src`` is 0.
 
 ``philox(mode, keys, counter, n, ...)`` is the one-segment group of the
 first slices' modes (draw, przs, share, share_lane).
@@ -50,6 +55,12 @@ MAX_ROWS = 8
 MAX_SEGMENTS = 16
 MAX_N = (1 << 32) - 1
 WHATS = {"draw": 0, "zero": 1, "plain": 2, "plain_lane": 3, "fresh": 4}
+# the TTP dealer's sharings, the kernel's codes after WHATS'
+TTP_WHATS = {"ttp_plain": 5, "ttp_fresh": 6}
+TTP = tuple(TTP_WHATS)
+# the sharings whose v is a given plaintext, and those that draw it fresh
+PLAINS = ("plain", "plain_lane", "ttp_plain")
+FRESH = ("fresh", "ttp_fresh")
 HOWS = ("add", "xor")
 # the kernel's block: threads, and pairs in flight a thread
 THREADS = 256
@@ -139,7 +150,7 @@ class Segment:
         if self.what == "draw":
             return "draw"
         base = {"zero": "przs", "plain": "share", "plain_lane": "share_lane",
-                "fresh": "fresh"}[self.what]
+                "fresh": "fresh", "ttp_plain": "ttp_share", "ttp_fresh": "ttp_fresh"}[self.what]
         return base + ("_xor" if self.how == "xor" else "")
 
     def signature(self) -> tuple:
@@ -222,13 +233,13 @@ def plain_philox(mode, keys, counter, n, plain=None, src=0, kbits=64, device=Non
 def _check_segment(seg: Segment):
     if not isinstance(seg.keys, KeyRef):
         raise ValueError("a segment names its keys by key-table slots (keys.KeyRef)")
-    if seg.what not in WHATS:
+    if seg.what not in WHATS and seg.what not in TTP_WHATS:
         raise ValueError(f"unknown philox segment {seg.what!r}")
     if seg.how not in HOWS:
         raise ValueError(f"philox sharing is 'add' or 'xor', not {seg.how!r}")
     if not 1 <= seg.rows <= MAX_ROWS:
         raise ValueError(f"philox takes 1 to {MAX_ROWS} keys, got {seg.rows}")
-    if seg.what == "fresh" and not (isinstance(seg.dealer, KeyRef) and seg.dealer.rows == 1):
+    if seg.what in FRESH and not (isinstance(seg.dealer, KeyRef) and seg.dealer.rows == 1):
         raise ValueError("a fresh draw's dealer key is one key-table slot")
     if not 0 <= seg.n <= MAX_N:
         raise ValueError(f"philox n {seg.n} outside 0..{MAX_N}")
@@ -240,12 +251,14 @@ def _check_segment(seg: Segment):
     if seg.what != "draw":
         if not 0 <= seg.src < seg.rows:
             raise ValueError(f"src {seg.src} outside the {seg.rows} parties")
-        if seg.how == "add" and seg.kbits != 64:
-            raise ValueError("an additive sharing takes 64-bit streams")
-    if seg.emit and seg.what != "fresh":
+        if (seg.how == "add" or seg.what in TTP) and seg.kbits != 64:
+            raise ValueError("an additive or TTP sharing takes 64-bit streams")
+    if seg.what in TTP and seg.src != 0:
+        raise ValueError("a TTP sharing gives party 0 the rest: src is 0")
+    if seg.emit and seg.what not in FRESH:
         raise ValueError("only a fresh draw can be emitted")
-    if seg.what in ("plain", "plain_lane"):
-        want = (seg.n,) if seg.what == "plain" else (seg.rows, seg.n)
+    if seg.what in PLAINS:
+        want = (seg.rows, seg.n) if seg.what == "plain_lane" else (seg.n,)
         p = seg.plain
         if p is None or p.dtype != torch.int64 or tuple(p.shape) != want:
             raise ValueError(f"philox {seg.what} takes an int64 plain of shape {want}")
@@ -280,12 +293,14 @@ def _plain_segment(seg: Segment, device) -> torch.Tensor:
     P = len(keys)
     if seg.what == "draw":
         return plain_philox("draw", keys, seg.counter, seg.n, kbits=seg.kbits, device=device)
-    if seg.what == "fresh":
+    if seg.what in FRESH:
         v = plain_philox("draw", [seg.dealer.value()], seg.draw_counter, seg.n,
                          kbits=seg.draw_kbits, device=device)[0]
     else:
         v = seg.plain
-    if seg.how == "add":
+    if seg.what in TTP:
+        out = _plain_ttp(keys, seg.counter, seg.n, v, seg.how)
+    elif seg.how == "add":
         if seg.what == "zero":
             out = plain_philox("przs", keys, seg.counter, seg.n, device=device)
         elif seg.what == "plain_lane":
@@ -300,6 +315,22 @@ def _plain_segment(seg: Segment, device) -> torch.Tensor:
             mask[seg.src] = 1
             out = out ^ (v * mask if seg.what != "plain_lane" else v[seg.src] * mask)
     return (out, v) if seg.emit else out
+
+
+def _plain_ttp(keys, counter, n, v, how):
+    """The TTP dealer's sharing of v (curl_tpu/mpc/provider/ttp_provider.py:
+    41-66) in plain torch: parties p >= 1 draw their ttp stream, party 0
+    takes v minus (or XOR) their sum."""
+    rest = plain_philox("draw", keys[1:], counter, n, device=v.device) if len(keys) > 1 else None
+    if rest is None:
+        return v.clone()[None]
+    if how == "add":
+        first = v - rest.sum(0)
+    else:
+        first = v.clone()
+        for row in rest:
+            first ^= row
+    return torch.cat([first[None], rest])
 
 
 def plain_philox_group(segments, device=None):
@@ -379,10 +410,11 @@ def philox_group(segments, device=None):
         a.plain = seg.plain.data_ptr() if seg.plain is not None else None
         a.n = seg.n
         a.slot = seg.keys.slot
-        a.dealer_slot = seg.dealer.slot if seg.what == "fresh" else 0
+        a.dealer_slot = seg.dealer.slot if seg.what in FRESH else 0
         a.counter, a.draw_counter = seg.counter, seg.draw_counter
         a.block0, a.blocks = p["block0"][i], p["blocks"][i]
-        a.rows, a.what, a.xor_share = seg.rows, WHATS[seg.what], int(seg.how == "xor")
+        a.rows, a.xor_share = seg.rows, int(seg.how == "xor")
+        a.what = WHATS[seg.what] if seg.what in WHATS else TTP_WHATS[seg.what]
         a.kbits, a.draw_kbits, a.src, a.emit = seg.kbits, seg.draw_kbits, seg.src, int(seg.emit)
     with torch.cuda.device(device):
         stream_ptr = torch.cuda.current_stream(device).cuda_stream

@@ -16,4 +16,16 @@ def get_default_provider():
     return _default_provider
 
 
+def set_default_provider(name: str):
+    """Select the provider by name (curl_tpu/mpc/__init__.py): TFP, TTP or
+    HE."""
+    cfg.set("mpc.provider", name)
+    get_default_provider()
+
+
+def ttp_required() -> bool:
+    """True when the configured provider needs the TTP dealer streams."""
+    return cfg.mpc.provider == "TTP"
+
+
 from .mpc import MPCTensor  # noqa: E402,F401

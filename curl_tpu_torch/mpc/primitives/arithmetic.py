@@ -33,11 +33,14 @@ def _is_public(value) -> bool:
 
 
 def _get_protocol():
-    if cfg.mpc.protocol != "beaver":
-        raise NotImplementedError(f"protocol {cfg.mpc.protocol!r} is not ported yet")
-    from . import beaver
+    """The module of ``mpc.protocol``: Beaver triples or replicated
+    sharing (arithmetic.py:55-59)."""
+    from . import beaver, replicated
 
-    return beaver
+    protocols = {"beaver": beaver, "replicated": replicated}
+    if cfg.mpc.protocol not in protocols:
+        raise ValueError(f"mpc.protocol is 'beaver' or 'replicated', not {cfg.mpc.protocol!r}")
+    return protocols[cfg.mpc.protocol]
 
 
 def _public_tensor(value, constant: bool = False):
@@ -82,6 +85,12 @@ class ArithmeticSharedTensor:
     @classmethod
     def from_shares(cls, share, precision: Optional[int] = None):
         return cls(ring.to_ring(share), FixedPointEncoder(precision))
+
+    @classmethod
+    def PRSS(cls, shape):
+        """A pseudo-random secret sharing of a random value: each party's
+        own ``local`` draw (arithmetic.py:127)."""
+        return cls(rng.random_ring(tuple(shape), "local"), FixedPointEncoder())
 
     # -- structure ---------------------------------------------------------
     @property

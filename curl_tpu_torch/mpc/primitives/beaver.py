@@ -17,7 +17,18 @@ the same rounds and bytes as there:
 Revealed values (epsilon, delta, the LUT shift) are public tensors without
 the party axis; dealer plaintexts (a, b, c = a @ b) are too, and are
 computed once. The LUTs and the embedding take the JAX package's TFP
-gather forms (its ``lut_fastpath``/``fused_onehot`` defaults).
+gather forms where its gates do (``mpc.lut_fastpath``: a provider with
+``generate_lut_masks``; ``mpc.fused_onehot``: TFP, Beaver, passive, 2
+parties), else its tuple forms: the one-hot tuple (``generate_one_hot``),
+its shift revealed, the public table rotated and dotted with it (chunked
+over the elements for TFP above ``mpc.lut_chunk_elements``), and the
+embedding's one-hot rotated by the shift and multiplied by the protocol's
+matmul, at any number of parties.
+
+Under ``mpc.active_security`` each Beaver product checks its triple against
+a second one (the SPDZ sacrifice, beaver.py:57-75) and, where the check is
+not zero, poisons c with a ``local`` draw, branch-free, so that a captured
+forward makes no host sync.
 
 A secret operand that many products reuse (a decode loop's weights, the LM
 head over chunks of positions) can be Beaver-masked once
@@ -25,9 +36,7 @@ head over chunks of positions) can be Beaver-masked once
 once, each later product then draws only its input-sized a and reveals only
 eps = x - a. A convolution's reconstruction ``eps * b + x * delta`` (and
 a masked one's three products) is one ``ring.conv_acc``: the operands'
-im2col columns in one ring-mm launch. Not ported: the reference's tuple
-one-hot forms (and with them the private embedding of more than two
-parties), and active security.
+im2col columns in one ring-mm launch.
 """
 
 from __future__ import annotations
@@ -104,14 +113,44 @@ def _product_pairs(op, x_ndim, y_ndim, pairs):
     return [(a, lift(b, y_ndim + 1) if party(b, y_ndim) else b) for a, b in pairs], lambda z: z
 
 
+def _sacrificed(op, x, y, a, b, c, kwargs):
+    """c, checked against a second triple (f, g, h) at a revealed PRSS
+    multiplier t (beaver.py:57-75): rho = t a - f and sigma = b - g
+    revealed, then t c - h - op(f, sigma) - op(rho, g) - op(rho, sigma),
+    revealed, must be zero; where it is not, c is poisoned with a fresh
+    ``local`` draw on every party (no branch: a captured forward makes no
+    host sync). For an elementwise product t has a's shape and every term
+    is elementwise, as in the JAX package. For a matmul or a convolution t
+    is one ring element: the JAX package's elementwise terms do not
+    broadcast there (a matmul of (3, 4) by (4, 2) raises) or check a wrong
+    identity (a square one poisons an honest triple), so the port takes
+    the same rounds with t's reveal one element wide."""
+    f, g, h = _provider().generate_additive_triple(x.shape, y.shape, op, **kwargs)
+    t = _raw(ArithmeticSharedTensor.PRSS(a.shape if op == "mul" else ())).reveal()
+    rho = comm.all_sum(t * a.share - f.share)
+    sigma = comm.all_sum(b.share - g.share)
+    if op == "mul":
+        nd = len(c.shape)
+        check = t * c.share - h.share - sigma * lift(f.share, nd) - rho * lift(g.share, nd)
+        check = comm.all_sum(check) - rho * sigma
+    else:
+        pairs, back = _product_pairs(op, x.ndim, y.ndim, [(f.share, sigma), (rho, g.share)])
+        check = t * c.share - h.share - back(_ring_sum(op, pairs, kwargs))
+        pairs, back = _product_pairs(op, x.ndim, y.ndim, [(rho, sigma)])
+        check = comm.all_sum(check) - back(_ring_sum(op, pairs, kwargs))
+    bad = (check != 0).any().to(torch.int64)
+    return c.with_share(c.share + bad * rng.random_ring(c.shape, "local"))
+
+
 def _beaver_protocol(op, x, y, **kwargs):
     """z = c + eps*b + x*delta with one batched reveal (x = a + eps, so
     this equals the reference's c + eps*b + a*delta + eps*delta). A
     seed-compressed matmul operand y is opened in one pass
-    (``SeedCompressedArithmetic.open``): the same delta, rounds and bytes."""
-    if cfg.mpc.active_security:
-        raise NotImplementedError("active security is not ported yet")
+    (``SeedCompressedArithmetic.open``): the same delta, rounds and bytes.
+    Under active security the triple is sacrificed first (``_sacrificed``)."""
     a, b, c = _provider().generate_additive_triple(x.shape, y.shape, op, **kwargs)
+    if cfg.mpc.active_security:
+        c = _sacrificed(op, x, y, a, b, c, kwargs)
     if _opens_compressed(op, y):
         # one batched reveal of eps and delta: eps's round and bytes are
         # counted here, delta's bytes with them
@@ -327,6 +366,84 @@ def egk_trunc_pr(x, l: int, m: int):
 # LUT protocols — Curl's signature primitives
 # ---------------------------------------------------------------------------
 
+def _onehot_fast_available() -> bool:
+    """The gate of the direct rotated one-hot (beaver.py:362): the TFP
+    dealer's trust, Beaver, passive security, 2 parties, and
+    ``mpc.fused_onehot`` not False (False forces the tuple form). Not gated
+    on the tuple cache: the form asks the provider for nothing, so it
+    engages alike in a recording run and in the run served."""
+    if getattr(cfg.mpc, "fused_onehot", True) is False:
+        return False
+    if cfg.mpc.active_security or cfg.mpc.protocol != "beaver":
+        return False
+    return _provider().NAME == "TFP" and comm.get_world_size() == 2
+
+
+def _lut_fastpath_available() -> bool:
+    """The gate of the gather-form LUT tuple (beaver.py:423): a provider
+    with ``generate_lut_masks`` (TFP) and ``mpc.lut_fastpath`` on; off, the
+    one-hot-dot form."""
+    return bool(getattr(cfg.mpc, "lut_fastpath", True)) and hasattr(
+        _provider(), "generate_lut_masks")
+
+
+def _lut_chunk_elements() -> int:
+    """The bound on an (N, L) one-hot's elements above which the TFP form
+    runs in chunks of elements (beaver.py:461): ``mpc.lut_chunk_elements``,
+    2^31 where unset."""
+    try:
+        return int(cfg.mpc.lut_chunk_elements)
+    except (AttributeError, TypeError):
+        return 1 << 31
+
+
+def _lut_open_shift(x_flat, size: int):
+    """The one-hot tuple of r and the revealed shift (x - r) mod size: one
+    round (beaver.py:353)."""
+    r, one_hot_r = _provider().generate_one_hot(x_flat.shape, size)
+    z = comm.all_sum(x_flat.share - r.share)
+    return one_hot_r, torch.remainder(z, size)
+
+
+def _rotated_table(lut, shift, size: int):
+    """The public table at (j + shift_n) mod size: (N, size)."""
+    j = torch.arange(size, dtype=torch.int64, device=shift.device)
+    return lut[torch.remainder(j[None, :] + shift[:, None], size)]
+
+
+def _chunked_lut_sum(x_flat, luts_rows, size: int):
+    """sum_j onehot_r[n, j] T[(j + shift_n) mod L] for each public table row
+    T (beaver.py:474-543): the one-hot tuple and one reveal of the shift.
+    The TFP dealer's one-hot is PRZS plus party 0's one-hot of r, which a
+    party makes chunk by chunk of elements where N L exceeds
+    ``mpc.lut_chunk_elements``, so that no (chunk, L) intermediate is
+    larger; a dealer whose sharing communicates (TTP), a cache flow
+    (recording or served: the tuple stream must match) and one element
+    take the tuple whole."""
+    n = x_flat.shape[0]
+    limit = _lut_chunk_elements()
+    provider = _provider()
+    if (provider.NAME != "TFP" or provider.tracing or provider.current_cache() is not None
+            or n * size <= limit or n < 2):
+        one_hot_r, shift = _lut_open_shift(x_flat, size)
+        return [(one_hot_r.share * _rotated_table(row, shift, size)).sum(-1)
+                for row in luts_rows]
+    # r drawn as generate_one_hot draws it, its sharing, one reveal
+    r = rng.random_ring((n,), rng.dealer_stream())
+    r_clear = torch.remainder(r, size)
+    z = comm.all_sum(x_flat.share - rng.przs_share(r_clear))
+    shift = torch.remainder(z, size)
+    chunk = max(limit // size, 1)
+    grid = torch.arange(size, dtype=torch.int64, device=r.device)
+    outs = [[] for _ in luts_rows]
+    for lo in range(0, n, chunk):
+        rc, sh = r_clear[lo:lo + chunk], shift[lo:lo + chunk]
+        oh_share = rng.przs_share((rc[:, None] == grid).to(torch.int64))
+        for out, row in zip(outs, luts_rows):
+            out.append((oh_share * _rotated_table(row, sh, size)).sum(-1))
+    return [torch.cat(out, dim=-1) for out in outs]
+
+
 def _rotated_onehot_fast(x_flat, size: int):
     """Share of onehot(x mod size), built as fresh PRZS plus party 0's
     one-hot of (r + shift) mod size = x (beaver.py:388-420): one revealed
@@ -342,6 +459,18 @@ def _rotated_onehot_fast(x_flat, size: int):
     return rng.przs_share(onehot)
 
 
+def _rotated_onehot(x_flat, size: int):
+    """Share of onehot(x mod size): the direct form under its gate, else the
+    one-hot tuple rotated by the revealed shift (beaver.py:613-620)."""
+    if _onehot_fast_available():
+        return _rotated_onehot_fast(x_flat, size)
+    one_hot_r, shift = _lut_open_shift(x_flat, size)
+    j = torch.arange(size, dtype=torch.int64, device=shift.device)
+    idx = torch.remainder(j[None, :] - shift[:, None], size)
+    share = one_hot_r.share
+    return torch.gather(share, -1, idx.expand(share.shape))
+
+
 def _lut_gather_fast(x_flat, luts_rows, size: int):
     """[T[x mod L] for T in luts_rows] in gather form: output-shaped PRZS
     masks plus, on party 0 only, the public table at (r + shift) mod L."""
@@ -353,6 +482,14 @@ def _lut_gather_fast(x_flat, luts_rows, size: int):
     return [masks[i] + rank0(row[idx]) for i, row in enumerate(luts_rows)]
 
 
+def _lut_rows(x_flat, luts_rows, size: int):
+    """The tables' rows at x mod size: the gather form under its gate, else
+    the one-hot-dot form."""
+    if _lut_fastpath_available():
+        return _lut_gather_fast(x_flat, luts_rows, size)
+    return _chunked_lut_sum(x_flat, luts_rows, size)
+
+
 def _flat(x):
     return x.with_share(x.share.reshape(x.share.shape[0], -1))
 
@@ -360,7 +497,7 @@ def _flat(x):
 def evaluate_lut(x, lut):
     """result[n] = T[x_n mod L] with one reveal (beaver.py:552)."""
     lut = ring.constant(lut, comm.get_device())
-    (result,) = _lut_gather_fast(_flat(x), [lut], lut.shape[0])
+    (result,) = _lut_rows(_flat(x), [lut], lut.shape[0])
     return ArithmeticSharedTensor(result.reshape(x.share.shape), x.encoder)
 
 
@@ -368,7 +505,7 @@ def evaluate_bior_lut(x, luts, scale, bias: int):
     """Two-bank LUT + private linear interpolation (beaver.py:566):
     (lut1 - lut0) * scale + 2^bias * lut0, then EGK-truncate by 2*bias."""
     luts = ring.constant(luts, comm.get_device())  # (2, L)
-    lut0, lut1 = _lut_gather_fast(_flat(x), [luts[0], luts[1]], luts.shape[1])
+    lut0, lut1 = _lut_rows(_flat(x), [luts[0], luts[1]], luts.shape[1])
     scaling = _raw(_flat(scale))
     prod = mul(ArithmeticSharedTensor(lut1 - lut0, FixedPointEncoder(0)), scaling)
     combined = prod.share + ring.scalar(1 << bias) * lut0
@@ -376,17 +513,25 @@ def evaluate_bior_lut(x, luts, scale, bias: int):
     return ArithmeticSharedTensor(out.share.reshape(x.share.shape), x.encoder)
 
 
+def _embed_matmul(onehot, table):
+    """The rotated one-hot times a secret table: a Beaver-masked table's
+    reused mask, else the protocol's matmul (a replicated product under
+    ``mpc.protocol: replicated``)."""
+    from .arithmetic import _get_protocol
+
+    x = ArithmeticSharedTensor(onehot, FixedPointEncoder(0))
+    if isinstance(table, MaskedArithmetic):
+        return _masked_protocol("matmul", x, table)
+    return _get_protocol().matmul(x, table)
+
+
 def evaluate_embed(x, embed):
     """Private embedding lookup: the secret one-hot of x times the secret
-    table, one Beaver matmul (beaver.py:590); against a Beaver-masked table
+    table, one private matmul (beaver.py:590); against a Beaver-masked table
     (``MaskedArithmetic``) the product reuses its mask."""
-    if comm.get_world_size() != 2:
-        raise NotImplementedError("the private embedding of more than two parties is not ported yet")
     size, dim = embed.shape
-    rotated = _rotated_onehot_fast(_flat(x), size)
-    lookup = matmul(
-        ArithmeticSharedTensor(rotated, FixedPointEncoder(0)), _raw(embed)
-    )
+    rotated = _rotated_onehot(_flat(x), size)
+    lookup = _embed_matmul(rotated, _raw(embed))
     out_shape = x.share.shape + (dim,)
     return ArithmeticSharedTensor(lookup.share.reshape(out_shape), FixedPointEncoder(0))
 
@@ -398,23 +543,18 @@ def evaluate_embed_chunked(x, table_chunks, v_real: int, dim: int):
         onehot @ T = sum_i onehot[:, i*Vc:(i+1)*Vc] @ T_i,
 
     so the rotated one-hot is built once over the padded vocabulary
-    n * Vc (one reveal), then each chunk runs one Beaver matmul and the
+    n * Vc (one reveal), then each chunk runs one private matmul and the
     shares accumulate. ``table_chunks``: n (Vc, dim) shared tensors (plain
     or seed-compressed), whose vocab padding rows are zero. The JAX
     package's scan is a loop here; every chunk's draws take fresh counts."""
-    if comm.get_world_size() != 2:
-        raise NotImplementedError("the private embedding of more than two parties is not ported yet")
     vc = table_chunks[0].shape[0]
     v_pad = len(table_chunks) * vc
     if v_real > v_pad:
         raise ValueError(f"vocabulary {v_real} exceeds the {len(table_chunks)} chunks of {vc}")
-    rotated = _rotated_onehot_fast(_flat(x), v_pad)
+    rotated = _rotated_onehot(_flat(x), v_pad)
     acc = None
     for i, t_i in enumerate(table_chunks):
-        part = matmul(
-            ArithmeticSharedTensor(rotated[:, :, i * vc:(i + 1) * vc], FixedPointEncoder(0)),
-            _raw(t_i),
-        ).share
+        part = _embed_matmul(rotated[:, :, i * vc:(i + 1) * vc], _raw(t_i)).share
         acc = part if acc is None else acc + part
     return ArithmeticSharedTensor(acc.reshape(x.share.shape + (dim,)), FixedPointEncoder(0))
 

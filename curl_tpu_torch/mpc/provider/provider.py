@@ -35,14 +35,14 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-# the JAX package's list, less generate_one_hot: the port takes the gather
-# and rotated-one-hot forms only, which never call it
+# the JAX package's list (provider.py:28-37)
 TRACEABLE_FUNCTIONS = [
     "generate_additive_triple",
     "square",
     "generate_binary_triple",
     "wrap_rng",
     "B2A_rng",
+    "generate_one_hot",
     "generate_lut_masks",
     "egk_trunc_pr_rng",
 ]
@@ -390,8 +390,13 @@ def load_cache(path) -> TupleCache:
 
 
 def get_provider(name: str) -> TupleProvider:
-    if name != "TFP":
-        raise NotImplementedError(f"provider {name!r} is not ported yet (TFP only)")
+    """A new provider of ``mpc.provider``'s name: TFP, TTP or HE
+    (curl_tpu/mpc/provider/__init__.py)."""
+    from .homomorphic_provider import HomomorphicProvider
     from .tfp_provider import TrustedFirstParty
+    from .ttp_provider import TrustedThirdParty
 
-    return TrustedFirstParty()
+    providers = {"TFP": TrustedFirstParty, "TTP": TrustedThirdParty, "HE": HomomorphicProvider}
+    if name not in providers:
+        raise ValueError(f"mpc.provider is one of {sorted(providers)}, not {name!r}")
+    return providers[name]()

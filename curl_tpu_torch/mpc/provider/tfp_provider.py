@@ -91,6 +91,18 @@ class TrustedFirstParty(TupleProvider):
                              rng.segment_fresh(size, 1, draw_r, share_b, how="xor")])
         return _arith(da, size), BinarySharedTensor.from_shares(rng.shares(db, size))
 
+    def generate_one_hot(self, tensor_size, lut_size: int):
+        """r mod L and its one-hot row per element (tfp_provider.py:96): r
+        drawn, then r mod L and the (..., L) one-hot shared in one launch."""
+        draw_r, share_r, share_oh = rng.reserve_counts(3)
+        (dr,) = rng.launch([rng.segment_draw(tensor_size, 64, rng.dealer_stream(), draw_r)])
+        r_clear = torch.remainder(dr[0].reshape(tuple(tensor_size)), lut_size)
+        grid = torch.arange(lut_size, dtype=torch.int64, device=r_clear.device)
+        one_hot = (r_clear[..., None] == grid).to(torch.int64)
+        d_r, d_oh = rng.launch([rng.segment_share(r_clear, share_r),
+                                rng.segment_share(one_hot, share_oh)])
+        return _arith(d_r, tensor_size), _arith(d_oh, one_hot.shape)
+
     def generate_lut_masks(self, tensor_size, lut_size: int, n_tables: int):
         """Gather-form one-hot tuple: (r_clear, [r], output PRZS masks); see
         the JAX package's generate_lut_masks for the algebra. Two launches:

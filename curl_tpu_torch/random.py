@@ -6,6 +6,9 @@ Counterpart of ``curl_tpu/random.py``. Every stream is a 64-bit Philox seed:
             and its "prev" stream ring[p - 1], so next[p] == prev[p + 1] and
             PRZS telescopes to zero over the parties;
   local[p]  private to party p;
+  ttp[p]    shared by party p and the trusted third party (the TTP
+            provider's dealer): party p >= 1 draws its tuple shares from
+            it, and the dealer gives party 0 the rest;
   global    shared by all parties (public randomness);
   dealer    the TFP dealer's stream for tuple plaintexts;
   fused     the dealer's stream for the randomness the fused protocol
@@ -20,7 +23,8 @@ seeded session replays the same randomness whatever ran before it.
 
 The stream seeds live in one session key table (``kernels/keys.KeyTable``):
 ``next``, ``prev`` and ``local`` for up to ``MAX_PARTIES`` parties, then
-``global``, ``dealer`` and ``fused``, on the host and on each device that a
+``global``, ``dealer`` and ``fused``, then ``ttp`` for up to ``MAX_PARTIES``
+parties, on the host and on each device that a
 kernel has read it from. ``set_keys`` writes it in place and never
 reallocates it, and every segment and fused call names a stream by its
 slot (``stream_ref``, ``fused_key``), not by its value: a launch captured
@@ -62,8 +66,8 @@ _keys = None
 MAX_PARTIES = MAX_ROWS
 SLOTS = {"next": 0, "prev": MAX_PARTIES, "local": 2 * MAX_PARTIES,
          "global": 3 * MAX_PARTIES, "dealer": 3 * MAX_PARTIES + 1,
-         "fused": 3 * MAX_PARTIES + 2}
-TABLE = KeyTable(3 * MAX_PARTIES + 3)
+         "fused": 3 * MAX_PARTIES + 2, "ttp": 3 * MAX_PARTIES + 3}
+TABLE = KeyTable(4 * MAX_PARTIES + 3)
 
 
 def _next_count() -> int:
@@ -124,6 +128,7 @@ def make_party_keys(seed: int, world_size: int) -> dict:
         "next": ring,
         "prev": [ring[(p - 1) % world_size] for p in range(world_size)],
         "local": [derive(2, i) for i in range(world_size)],
+        "ttp": [derive(6, i) for i in range(world_size)],
         "global": [derive(3)],
         "dealer": [dealer],
         "fused": [_splitmix64(dealer ^ 0x46555345445F4B31)],
@@ -246,6 +251,23 @@ def segment_fresh(shape, bitlength: int, draw_counter: int, counter: int, how: s
     """A dealer draw of ``bitlength`` bits at ``draw_counter``, shared on
     party 0 in the same pass (``emit``: returned beside the shares)."""
     return Segment("fresh", stream_ref("next"), counter, _numel(tuple(shape)), how=how,
+                   dealer=stream_ref("dealer"), draw_counter=draw_counter,
+                   draw_kbits=min(bitlength, 64), emit=emit)
+
+
+def segment_ttp_share(value: torch.Tensor, counter: int, how: str = "add") -> Segment:
+    """The TTP dealer's sharing of a plaintext (ttp_provider.py:41-66):
+    parties p >= 1 draw their share from their ``ttp`` stream at
+    ``counter``, party 0 gets ``value`` minus (or XOR) their sum."""
+    flat = _flat(value, False)
+    return Segment("ttp_plain", stream_ref("ttp"), counter, flat.shape[-1], how=how, plain=flat)
+
+
+def segment_ttp_fresh(shape, bitlength: int, draw_counter: int, counter: int, how: str = "add",
+                      emit: bool = False) -> Segment:
+    """A dealer draw of ``bitlength`` bits at ``draw_counter``, shared by the
+    TTP dealer in the same pass (``emit``: returned beside the shares)."""
+    return Segment("ttp_fresh", stream_ref("ttp"), counter, _numel(tuple(shape)), how=how,
                    dealer=stream_ref("dealer"), draw_counter=draw_counter,
                    draw_kbits=min(bitlength, 64), emit=emit)
 
