@@ -16,8 +16,10 @@ CrossEntropyLoss, SGD), eagerly and as a training step captured by
 ``compile_parties``; a torchvision-layout ResNet-18 brought as a plain torch
 model and converted by ``from_pytorch`` (eager and captured) and by
 ``from_onnx`` of its ONNX export, and DPSplitModel's split training over
-LeNet; then the three compressed forwards captured as CUDA graphs by
-``compile_parties``.
+LeNet; the compressed GPT-2 through the eager API in lazy scopes, each
+replayed as one captured CUDA graph, and the materialized GPT-2 under the
+llm_config profile; then the three compressed forwards captured as CUDA
+graphs by ``compile_parties``.
 
     python3 chip_smoke.py
 
@@ -245,9 +247,32 @@ without the final line):
               triple's c off by one in one element, which must poison it.
               It runs after phase 13, so that phase 5 holds its launch
               signatures
+  15. lazy    phase 4c's model and tokens through the eager API in lazy
+              scopes (``with ct.lazy(): h = model(xe)``) under bench.py's
+              kernel configuration: scope 1 records (each op evaluated on
+              the meta device), warms up and captures one CUDA graph;
+              scopes 2-7 record from the evaluations kept and replay it at
+              fresh flush seeds; each timed from entering the scope until
+              its output's shares are on the device, beside two plain eager
+              forwards and (after phase 6) phase 6's compile_parties replay.
+              Holds: one flush and no fallback a scope, no capture after
+              scope 1, phase 4c's rounds and bytes a scope, the capture's
+              launches by kernel phase 4c's, each scope's hidden state
+              within phase 4c's bound, different shares in scopes 2 and 3.
+              Logs the recording time of a repeated scope, the device busy
+              share of one, the graph's memory
+  15b. llm_config  phase 4's GPT-2 (weights and tokens, materialized) under
+              ``init(config_file=<the port's configs/llm_config.yaml>)``,
+              as examples/llms.py --no_cmp runs it: one eager forward (its
+              launch signatures recorded for phase 5), two lazy scopes
+              (capture, replay), the planted fault (one block left out).
+              Holds: rounds and bytes the CPU count eagerly and in each
+              scope, the hidden state within the bound fixed from CPU
+              readings and the fault above it, the capture's launches the
+              eager forward's, the default profile restored after it
   5. path     every launch signature (shapes, strides, op) that any of the
               runs of phases 3d, 4, 4b, 4e, 4c, 4d, 4f, 7, 8, 9, 10, 11, 12,
-              13 and 14
+              13, 14, 15 and 15b
               passed to ring_mm, philox, fused_mul, ltz, max_step and
               seed_expand (expand and open), on
               fresh operands of the same layout: bit for bit against plain,
@@ -280,9 +305,10 @@ that ported the kernels, or for the 3-pair ring_mm_acc entry of phase 7's
 generation; under ``paths`` the same for each phase's run, phase 10's fill
 and online as "cached fill" and "cached online", phase 11's as "resnet18"
 and "resnet50", phase 12's as "train", phase 13's as "convert", "convert
-onnx" and "dp split", phase 14's as "protocols <layout>", and under
-``captured`` the launches of each phase 6, 7, 10, 11, 12, 13 and 14
-capture) and, under ``protocols``, phase 14's readings by layout; then the
+onnx" and "dp split", phase 14's as "protocols <layout>", phase 15's as
+"lazy" and 15b's as "llm_config", and under ``captured`` the launches of
+each phase 6, 7, 10, 11, 12, 13, 14, 15 and 15b capture) and, under
+``protocols``, phase 14's readings by layout; then the
 card's name and power limit, then ``{"ok": true, "device": {...}}`` as the
 last line.
 """
@@ -4994,6 +5020,257 @@ def tampered_forward(tag, model, xe, ref):
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the lazy scope; phase 15b: the llm_config profile
+# ---------------------------------------------------------------------------
+
+LAZY_PATH = "lazy"
+LLM_PATH = "llm_config"
+# scope 1 records, warms up and captures; the others replay
+LAZY_SCOPES = 7
+LLM_SCOPES = 2
+# Phase 15b's rounds and bytes of one forward, and its bound on the
+# final-LayerNorm hidden state's scale-free relative L2 error: fixed before
+# the phase's first card run from `python3 scripts/torch_llm_config_bound.py
+# count` and `... readings --seed S --fault` (12 blocks, session seeds 11, 1
+# and 2 read 0.02136, 0.02170 and 0.02148, every LayerNorm row inside the
+# profile's inv_sqrt domain; the bound is 1.5 times the worst, far below the
+# private forward without block 11, 0.18431; PERF.md §6)
+LLM_CONFIG_COUNTS = (1625, 2773625344)
+LLM_CONFIG_SCALE_FREE_L2 = 0.0326
+
+
+def lazy_scope(model, xe):
+    """``model(xe)`` in one lazy scope: (probabilities, the final-LayerNorm
+    hidden state, the scope's tape, the seconds its recording took)."""
+    import curl_tpu_torch as ct
+
+    seen = []
+    hook = model.ln.register_forward_hook(lambda mod, inp, out: seen.append(out))
+    try:
+        with ct.lazy() as tape:
+            t0 = time.perf_counter()
+            probs = model(xe)
+            record_s = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    return probs, seen[-1], tape, record_s
+
+
+def timed_scopes(tag, model, xe, n):
+    """``n`` scopes over ``model(xe)``, each timed from entering it until its
+    output's shares are on the device; scope 1's launches (its capture's),
+    reset just before it and read just after, and the graph's memory.
+    Returns a dict of the readings, each scope's tape and outputs."""
+    import curl_tpu_torch as ct
+
+    out = dict(lat=[], record_s=[], stats=[], tapes=[], hidden=[], shares=[])
+    reset_launches()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    for i in range(n):
+        before = ct.get_communication_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs, hidden, tape, record_s = lazy_scope(model, xe)
+        torch.cuda.synchronize()
+        out["lat"].append(time.perf_counter() - t0)
+        after = ct.get_communication_stats()
+        out["stats"].append((after["rounds"] - before["rounds"], after["bytes"] - before["bytes"]))
+        out["record_s"].append(record_s)
+        out["tapes"].append(tape)
+        out["shares"].append(hidden.share)
+        out["hidden"].append(hidden.get_plain_text())
+        if i == 0:
+            out["launches"], out["by_op"], _ = read_launches()
+            out["program"] = tape.program
+            out["shape"] = tuple(probs.shape)
+            del probs, hidden
+            torch.cuda.synchronize()
+            out["graph_gib"] = (torch.cuda.memory_allocated() - held
+                                - sum(s.numel() * 8 for s in out["shares"])) / 2**30
+    program = out["program"]
+    log(f"[{tag}] scope 1: {out['lat'][0]:.2f} s (recording {out['record_s'][0]:.2f} s, the "
+        f"program's warm-up {program.warmup_s:.2f} s, capture and instantiation "
+        f"{program.capture_s:.2f} s, a replay); {program.captures} capture in "
+        f"{n} scopes; the graph holds {out['graph_gib']:.3f} GiB")
+    log(f"[{tag}] scope latencies {', '.join(f'{x:.4f}' for x in out['lat'])} s: best of "
+        f"scopes 2-{n} {min(out['lat'][1:]):.4f} s; recording a repeated scope "
+        f"{', '.join(f'{x:.4f}' for x in out['record_s'][1:])} s")
+    log(f"[{tag}] flushes a scope {[t.flushes for t in out['tapes']]}, fallbacks "
+        f"{[t.fallbacks for t in out['tapes']]}; {len(out['tapes'][-1].nodes)} nodes left "
+        f"unflushed; rounds and bytes a scope {sorted(set(out['stats']))}")
+    log(f"[{tag}] the capture's launches {out['launches']}; fused_mul and max_step by op "
+        f"{out['by_op']}")
+    return out
+
+
+def scope_checks(tag, scopes, stats, bound, ref):
+    """The checks every phase's scopes hold: one flush and no fallback a
+    scope, one capture, the eager forward's rounds and bytes a scope, each
+    scope's hidden state within ``bound``, different shares in scopes 2
+    and 3 (in scopes 1 and 2 where there are two)."""
+    tapes = scopes["tapes"]
+    a, b = (1, 2) if len(tapes) > 2 else (0, 1)
+    checks = {
+        "each scope one flush and no fallback":
+            all(t.flushes == 1 and t.fallbacks == 0 for t in tapes),
+        f"no capture after scope 1 ({len(tapes)} scopes, one program)":
+            scopes["program"].captures == 1 and all(t.program is scopes["program"] for t in tapes),
+        f"each scope counts {stats[0]} rounds and {stats[1]} bytes":
+            all(s == tuple(stats) for s in scopes["stats"]),
+        f"scopes {a + 1} and {b + 1} different shares":
+            not torch.equal(scopes["shares"][a], scopes["shares"][b]),
+    }
+    for i, hidden in enumerate(scopes["hidden"]):
+        st = hidden_stats(hidden, ref)
+        log(f"[{tag}] scope {i + 1} final-LN hidden: {fmt_stats(st)}")
+        checks[f"scope {i + 1} hidden within scale-free rel L2 {bound}"] = (
+            np.isfinite(hidden).all() and st["scale_free_l2"] <= bound
+            and st["max_abs"] <= HIDDEN_STATE_ATOL)
+    return checks
+
+
+def timed_eager(model, xe, n):
+    lat = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(xe)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return lat
+
+
+def run_lazy(res):
+    """Phase 15: phase 4c's compressed GPT-2 and tokens through the eager API
+    in lazy scopes (``with ct.lazy(): h = model(xe)``), under bench.py's
+    kernel configuration: scope 1 records, warms up and captures, scopes
+    2-7 replay; two plain eager forwards beside them. Returns (the path's
+    (calls, launches, by_op), its captured entry, failures)."""
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg
+
+    tag = "lazy"
+    model, xe = res["model"], res["xe"]
+    want = (res["stats"]["rounds"], res["stats"]["bytes"])
+    with cfg.temp_override(res["config"]):
+        with recording_launches() as calls:
+            eager = timed_eager(model, xe, 1)
+        eager += timed_eager(model, xe, 1)
+        ct.reset_communication_stats()
+        scopes = timed_scopes(tag, model, xe, LAZY_SCOPES)
+        best = min(scopes["lat"][1:])
+        busy = profile_forward(None, None, best, tag=f"profile, {tag}", top=6, shapes=False,
+                               call=lambda: lazy_scope(model, xe))
+    smi = nvidia_smi_line()
+    log(f"[{tag}] best scope {best:.4f} s against two eager forwards "
+        f"{', '.join(f'{x:.4f}' for x in eager)} s (phase 4c's best {res['best_s']:.4f} s); "
+        "device busy in one repeated scope "
+        + (f"{busy:.1f} ms, {busy / (best * 1e3):.1%}" if busy is not None else "not measured")
+        + f" ({smi})")
+    checks = scope_checks(tag, scopes, want, res["bound"], res["ref"])
+    checks["the capture's launches by kernel equal phase 4c's counted forward"] = (
+        (scopes["launches"], scopes["by_op"]) == (res["launches"], res["by_op"]))
+    checks[f"the output's shape (1, {SEQ}, vocab)"] = scopes["shape"][:2] == (1, SEQ)
+    failures = report_checks(tag, checks)
+    chains = {name: sum(n for t, n in scopes["by_op"].items() if is_tag(t))
+              for name, is_tag in CHAIN_TAGS.items()}
+    captured = dict(launches=scopes["launches"], chains=chains, best_s=best, busy_ms=busy,
+                    eager_s=eager, record_s=min(scopes["record_s"][1:]),
+                    capture_s=scopes["program"].capture_s, graph_gib=scopes["graph_gib"])
+    del scopes
+    return (calls, res["launches"], res["by_op"]), captured, failures
+
+
+def run_llm_config(dev):
+    """Phase 15b: phase 4's materialized GPT-2 (weights and tokens) under
+    ``init(config_file=<the port's llm_config.yaml>)``, as examples/llms.py
+    --no_cmp runs it: one eager forward (counted, its launch signatures
+    recorded), two lazy scopes (capture, replay), the planted fault; then
+    the default profile restored. Returns (the path's (calls, launches,
+    by_op), its captured entry, failures)."""
+    import yaml
+
+    import curl_tpu_torch as ct
+    from curl_tpu_torch.config import cfg, profile
+    from curl_tpu_torch.models import GPT2, load_numpy_state_dict
+
+    tag = "llm_config"
+    blocks, heads, d, vocab = (GPT2.GEOM[k] for k in ("num_blocks", "num_heads", "embed_dim",
+                                                      "vocab_size"))
+    sd = random_gpt2_state(np.random.default_rng(1234), SEQ, blocks, d=d, vocab=vocab)
+    tokens = gpt2_tokens()
+    ids = tokens.astype(np.int64)
+    ref = plain_gpt_forward(sd, ids, heads, blocks, dev, head=False)[0].cpu().numpy()
+    skip_err = [hidden_stats(plain_gpt_forward(sd, ids, heads, blocks, dev, skip=j,
+                                               head=False)[0].cpu().numpy(), ref)["scale_free_l2"]
+                for j in range(blocks)]
+    fault_block = int(np.argmin(skip_err))
+    try:
+        t0 = time.perf_counter()
+        ct.init(config_file=profile("llm_config"), world_size=2, seed=SEED)
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = load_numpy_state_dict(GPT2(seq_len=SEQ), sd)
+        model.encrypt(src=0)
+        torch.cuda.synchronize()
+        log(f"[{tag}] init with the profile (its tables built) {init_s:.1f} s; GPT-2 "
+            f"encrypted in {time.perf_counter() - t0:.1f} s")
+        xe = ct.cryptensor(tokens, precision=0)
+        seen = []
+        hook = model.ln.register_forward_hook(lambda mod, inp, out: seen.append(out))
+        reset_launches()
+        ct.reset_communication_stats()
+        try:
+            with recording_launches() as calls:
+                eager = timed_eager(model, xe, 1)
+        finally:
+            hook.remove()
+        launches, by_op, _ = read_launches()
+        stats = ct.get_communication_stats()
+        eager_hidden = hidden_stats(seen[-1].get_plain_text(), ref)
+        del seen
+        ct.reset_communication_stats()
+        scopes = timed_scopes(tag, model, xe, LLM_SCOPES)
+        fault = hidden_stats(private_hidden(model, xe, skip=fault_block).get_plain_text(), ref)
+    finally:
+        cfg.load_config(None)
+        ct.init(world_size=2, seed=SEED)
+    with open(profile("default")) as f:
+        restored = cfg.to_dict() == yaml.safe_load(f)
+    bound = LLM_CONFIG_SCALE_FREE_L2
+    log(f"[{tag}] eager forward {eager[0]:.4f} s; {stats['rounds']} rounds, {stats['bytes']} "
+        f"bytes (the CPU count {LLM_CONFIG_COUNTS[0]}, {LLM_CONFIG_COUNTS[1]}); launches "
+        f"{launches}")
+    log(f"[{tag}] eager final-LN hidden: {fmt_stats(eager_hidden)}; planted fault, the "
+        f"private forward without block {fault_block}: {fmt_stats(fault)} (plaintext "
+        f"{skip_err[fault_block]:.5f}; bound {bound})")
+    checks = scope_checks(tag, scopes, LLM_CONFIG_COUNTS, bound, ref)
+    checks.update({
+        "the eager forward's rounds and bytes the CPU count":
+            (stats["rounds"], stats["bytes"]) == tuple(LLM_CONFIG_COUNTS),
+        f"the eager forward's hidden within scale-free rel L2 {bound}":
+            eager_hidden["scale_free_l2"] <= bound,
+        "the planted fault above the bound": fault["scale_free_l2"] > bound,
+        "the capture launched every kernel the eager forward launched, as often":
+            (scopes["launches"], scopes["by_op"]) == (launches, by_op),
+        "ring_mm, ring_mm_acc and philox launched":
+            all(launches[k] > 0 for k in ("ring_mm", "ring_mm_acc", "philox")),
+        "the default profile restored after it (cfg.to_dict() is configs/default.yaml's)":
+            restored,
+    })
+    failures = report_checks(tag, checks)
+    chains = {name: sum(n for t, n in scopes["by_op"].items() if is_tag(t))
+              for name, is_tag in CHAIN_TAGS.items()}
+    captured = dict(launches=scopes["launches"], chains=chains, best_s=min(scopes["lat"][1:]),
+                    eager_s=eager, capture_s=scopes["program"].capture_s)
+    del scopes, model, xe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (calls, launches, by_op), captured, failures
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: every kernel in the launch signatures the forward passed
 # ---------------------------------------------------------------------------
 
@@ -5497,6 +5774,15 @@ def run_paths(dev, gen):
     failures += protocol_failures
     paths.update(protocol_paths)
     phase_done("phase 14")
+    # phases 15 and 15b: the lazy scope over phase 4c's model, and phase 4's
+    # GPT-2 under llm_config; before phase 5, which holds their launch
+    # signatures too
+    paths[LAZY_PATH], lazy_captured, lazy_failures = run_lazy(compressed)
+    failures += lazy_failures
+    phase_done("phase 15")
+    paths[LLM_PATH], llm_captured, llm_failures = run_llm_config(dev)
+    failures += llm_failures
+    phase_done("phase 15b")
 
     # phase 5: every signature of every path held bit-exact and timed once,
     # then summed over each path's launches
@@ -5524,7 +5810,8 @@ def run_paths(dev, gen):
     # through compile_parties, captured once and replayed; each model freed
     # after
     captured = {GENERATE_PATH: generated["captured"], **cached.pop("captured"), **resnet_captured,
-                TRAIN_PATH: train_captured, **convert_captured, **protocol_captured}
+                TRAIN_PATH: train_captured, **convert_captured, **protocol_captured,
+                LAZY_PATH: lazy_captured, LLM_PATH: llm_captured}
     del generated
     for p, res in (("compressed", compressed), ("neo", neo), ("neo_large", neo_large)):
         captured[p], cap_failures = run_captured(p, res)
@@ -5540,6 +5827,10 @@ def run_paths(dev, gen):
         f"offline_fill_sec {cached['offline_fill_s']:.4f} s; device busy in one online replay "
         + (f"{cached['busy_ms']:.1f} ms, {cached['busy_ms'] / (cached['best_s'] * 1e3):.1%}"
            if cached["busy_ms"] is not None else "not measured") + f" ({smi})")
+    log(f"[lazy] the best repeated scope {lazy_captured['best_s']:.4f} s (recording "
+        f"{lazy_captured['record_s']:.4f} s of it) beside phase 6's compile_parties replay of the "
+        f"same model and tokens {captured['compressed']['best_s']:.4f} s and the eager forwards "
+        f"{', '.join(f'{x:.4f}' for x in lazy_captured['eager_s'])} s ({smi})")
 
     def counted(p, name):
         """The launches one forward of path p counted for a JSON entry."""

@@ -37,15 +37,29 @@ Eager ops serve from a host cache too: ``trace(True)`` records the tuple
 requests of the ops that follow, ``fill_cache()`` generates them, and the
 same ops run again pop its entries in order.
 
+Eager ops in a lazy scope are recorded and run as one program, a captured
+CUDA graph on the card, at the first read of a result (``lazy.py``):
+
+    with ct.lazy():
+        h = model(xe)
+    h.get_plain_text()
+
+A profile replaces the whole config: ``ct.init(config_file=
+ct.config.profile("llm_config"))`` (or any YAML file of the same keys).
+
 The package imports no JAX and nothing of ``curl_tpu``.
 """
 
 from __future__ import annotations
 
+import builtins
+import logging
+
 import torch
 
 from . import comm
 from . import random as _rng
+from . import lazy as _lazy
 from .config import cfg
 from .encoder import FixedPointEncoder
 from .mpc import MPCTensor, get_default_provider  # noqa: F401
@@ -61,32 +75,66 @@ from .nn import module as _nn_module
 from . import parallel  # noqa: F401
 from .parallel import Public, compile_parties, compile_parties_cached, run_parties  # noqa: F401
 from . import optim  # noqa: F401
+from .lazy import lazy  # noqa: F401
 
 __version__ = "0.1.0"
 
 # the port's encrypted tensor: every party's share already stacked
 CrypTensor = MPCTensor
 
+_initialized = False
 
-def init(world_size: int = 2, seed: int = 0, device=None):
-    """Start a session: load the config, derive the party streams from
-    ``seed`` and restart the draw counter and the parameter-init generator.
+
+def init(config_file=None, world_size: int = 2, seed: int = 0, device=None):
+    """Start a session (curl_tpu/__init__.py:93-118): load the profile
+    ``config_file`` where given (it replaces the whole config), derive the
+    party streams from ``seed``, restart the draw counter, the flush seeds
+    of the lazy scope and the parameter-init generator, and build the
+    lookup tables the config's methods use.
 
     ``device=None`` runs on the CUDA card and raises where there is none;
     only an explicit ``device="cpu"`` runs on the CPU."""
+    global _initialized
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "curl_tpu_torch.init: no CUDA device; pass device='cpu' to run on the CPU"
             )
         device = "cuda"
+    if config_file is not None:
+        cfg.load_config(config_file)
     comm.set_device(device)
     comm.set_world_size(world_size)
     _rng.set_keys(_rng.make_party_keys(seed, world_size))
     if comm.get_device().type == "cuda":
         _rng.TABLE.tensor(comm.get_device())  # the key table's device copy
     _rng.reset_count()
+    _lazy.reset(seed)
     _nn_module.set_init_seed(seed)
+    from .functions.luts import LookupTables
+
+    LookupTables().build_all()
+    _initialized = True
+
+
+def uninit():
+    """End the session: its keys are dropped, and ops raise until the next
+    ``init`` (curl_tpu/__init__.py:121-123)."""
+    global _initialized
+    _initialized = False
+    _rng.clear_keys()
+    _lazy.reset()
+
+
+def is_initialized() -> bool:
+    return _initialized
+
+
+def init_thread(rank=None, world_size: int = 2, seed: int = 0, device=None):
+    """The reference's thread-based in-process mode (curl/__init__.py:84;
+    curl_tpu/__init__.py:634): the parties are the shares' leading axis of
+    one process, so this is ``init``."""
+    return init(world_size=world_size, seed=seed, device=device)
 
 
 def cryptensor(value, src: int = 0, precision=None, ptype_=ptype.arithmetic,
@@ -170,6 +218,29 @@ def get_communication_stats():
 
 def reset_communication_stats():
     comm.reset_communication_stats()
+
+
+def print_communication_stats():
+    """Rounds, bytes and calls through ``logging.info``
+    (curl_tpu/__init__.py:577)."""
+    comm.print_communication_stats()
+
+
+def log(*args, **kwargs):
+    """``logging.info`` (curl_tpu/__init__.py:585)."""
+    logging.info(*args, **kwargs)
+
+
+def print(*args, dst=0, **kwargs):  # noqa: A001  (the reference's curl.print)
+    """Rank-aware print (curl_tpu/__init__.py:640): the simulated parties
+    share one process, which plays the ``dst`` role."""
+    builtins.print(*args, **kwargs)
+
+
+def print_in_order(*args, **kwargs):
+    """Print once for all parties (curl_tpu/__init__.py:649): one process
+    holds them all."""
+    builtins.print(*args, **kwargs)
 
 
 # tuple-cache controls (curl/__init__.py:582-591; curl_tpu/__init__.py:591-615)

@@ -15,6 +15,15 @@ the same step captured by ``parallel.compile_parties`` build the same tape.
 As there (curl_tpu/__init__.py:334-363), an op that is not in the registry
 (inv_sqrt, split, a comparison, ...) runs off the tape: its output does not
 require grad, and no gradient flows back through it.
+
+The same dispatch records each op inside a lazy scope (``lazy.py``), where
+the JAX package's ``_eager_run`` does (curl_tpu/__init__.py:156-159): a
+plain call (no operand requires grad, or grad mode is off) and every
+off-tape op is recorded instead of run, and so are ``__getitem__`` and
+``__mod__``, which are bound to their plain methods. An autograd op runs
+its bookkeeping at once, and the ops its forward, and later its backward,
+call are recorded: a training step in a scope builds its tape over pending
+tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from __future__ import annotations
 import threading
 
 import torch
+
+from . import lazy  # the module (the package later exports its ``lazy()`` by that name)
 
 _grad_mode = threading.local()
 
@@ -155,6 +166,8 @@ def _wrap_method(cls, name, plain_method):
     def dispatched(self, *args, **kwargs):
         if (getattr(self, "requires_grad", False) or _requires_grad(args)) and is_grad_enabled():
             return apply_function(name, self, *args, **kwargs)
+        if lazy._tape is not None:
+            return lazy._tape.record(plain_method, (self,) + args, kwargs)
         return plain_method(self, *args, **kwargs)
 
     dispatched.__name__ = name
@@ -164,6 +177,8 @@ def _wrap_method(cls, name, plain_method):
 
 def _wrap_off_tape(cls, name, plain_method):
     def off_tape(self, *args, **kwargs):
+        if lazy._tape is not None:  # recorded ops run off the tape at the flush
+            return lazy._tape.record(plain_method, (self,) + args, kwargs)
         if (getattr(self, "requires_grad", False) or _requires_grad(args)) and is_grad_enabled():
             with no_grad():
                 return plain_method(self, *args, **kwargs)
@@ -175,7 +190,11 @@ def _wrap_off_tape(cls, name, plain_method):
 
 
 # methods that neither compute a share nor record: left as they are
-_TAPE_SURFACE = ("backward", "detach", "size", "dim", "nelement", "get_plain_text", "reveal")
+_TAPE_SURFACE = ("backward", "detach", "size", "dim", "nelement", "get_plain_text", "reveal",
+                 "_peek", "_assign")
+# operator dunders bound to plain methods that are not autograd ops: only
+# recorded in a lazy scope
+_LAZY_DUNDERS = ("__getitem__", "__mod__")
 
 
 def _reject_compressed_grads(args):
@@ -187,13 +206,24 @@ def _reject_compressed_grads(args):
     from .mpc.primitives.compressed import SeedCompressedArithmetic
 
     for t in _tensor_args(args):
-        if getattr(t, "requires_grad", False) and isinstance(
-                getattr(t, "_tensor", None), SeedCompressedArithmetic):
+        if getattr(t, "requires_grad", False) and hasattr(t, "_peek") and isinstance(
+                t._peek(), SeedCompressedArithmetic):
             raise RuntimeError(
                 "backward through seed-compressed shares is unsupported: "
                 "they are inference-only (2PC). Encrypt the parameters "
                 "with seed_compress=False (materialized shares) to train."
             )
+
+
+def _wrap_lazy(cls, name, plain_method):
+    def recorded(self, *args):
+        if lazy._tape is not None:
+            return lazy._tape.record(plain_method, (self,) + args, {})
+        return plain_method(self, *args)
+
+    recorded.__name__ = name
+    recorded.__doc__ = plain_method.__doc__
+    setattr(cls, name, recorded)
 
 
 def apply_function(name, *args, **kwargs):
@@ -315,6 +345,11 @@ def install_autograd(cls):
                 or not callable(attr) or isinstance(attr, (staticmethod, classmethod))):
             continue
         _wrap_off_tape(cls, name, attr)
+
+    for name in _LAZY_DUNDERS:
+        plain = getattr(cls, name, None)
+        if plain is not None:
+            _wrap_lazy(cls, name, plain)
 
     # the dunders were bound to the plain methods: without this, ``x + y``
     # would bypass the tape

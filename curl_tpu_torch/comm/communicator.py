@@ -19,6 +19,7 @@ bytes of ONE party's message (the per-party share size times 8).
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
 import torch
@@ -91,8 +92,28 @@ def register_virtual(name, nbytes, rounds=1):
     comm_stats.bytes += int(nbytes)
 
 
+def add_communication_stats(stats: dict):
+    """Count ``stats`` (``get_communication_stats``'s form, the difference
+    one run made) once more: a captured program's rounds, bytes and calls,
+    each time it runs."""
+    comm_stats.rounds += stats["rounds"]
+    comm_stats.bytes += stats["bytes"]
+    for name, n in stats["calls"].items():
+        comm_stats.calls[name] = comm_stats.calls.get(name, 0) + n
+
+
 def reset_communication_stats():
     comm_stats.reset()
+
+
+def print_communication_stats():
+    """The counters through ``logging.info``, in curl_tpu's words
+    (curl_tpu/comm/communicator.py:141)."""
+    logging.info("====Communication Stats====")
+    logging.info("Rounds: %d", comm_stats.rounds)
+    logging.info("Bytes: %d", comm_stats.bytes)
+    for k, v in sorted(comm_stats.calls.items()):
+        logging.info("  %s: %d", k, v)
 
 
 def get_communication_stats():

@@ -499,8 +499,14 @@ def softmax(self, dim=-1, mask=None):
     denominator = numerator.sum(axis=dim, keepdim=True)
     with cfg.temp_override({"functions.reciprocal_all_pos": True}):
         inv_denominator = denominator.reciprocal()
-    # Newton refinement r <- r (2 - s r) of the LUT reciprocal
-    for _ in range(int(cfg.functions.softmax_recip_refine)):
+    # Newton refinement r <- r (2 - s r) of the LUT reciprocal; 2 steps
+    # where the profile has no functions.softmax_recip_refine
+    # (approximations.py:740-743)
+    try:
+        refine = int(cfg.functions.softmax_recip_refine)
+    except AttributeError:
+        refine = 2
+    for _ in range(refine):
         inv_denominator = (
             inv_denominator + inv_denominator - denominator.mul(inv_denominator.square())
         )

@@ -7,9 +7,12 @@ wavelet decomposition from the filter banks
   bior2.2  dec_lo = sqrt(2) * [0, -1/8, 1/4, 3/4, 1/4, -1/8]
 
 with pywt's 'symmetric' boundary extension, and the same table generators,
-so every table is bit-equal to the JAX package's. Tables are built on first
-use, one by one (``LookupTables().LUTs[name]``), and kept in memory for the
-current config; nothing is written to disk.
+so every table is bit-equal to the JAX package's. ``init`` builds every
+table the config's methods use (``LookupTables().build_all()``), as the JAX
+package's does; a table is also built on first use
+(``LookupTables().LUTs[name]``). Each is kept in memory by its name and
+the config values it was built from, so a config that comes back reuses
+it; nothing is written to disk.
 """
 
 from __future__ import annotations
@@ -132,61 +135,69 @@ def _exp_tables():
 
 
 def _table_builders():
-    """name -> (method config key, builder) for every table of the JAX
-    package's initialize_luts (approximations.py:90-346)."""
+    """name -> (method config key, the size keys it reads, builder) for
+    every table of the JAX package's initialize_luts
+    (approximations.py:90-346). A builder reads
+    its size keys when it runs, under a LUT method: a partial profile
+    (configs/approximations.yaml) lacks the keys of the tables it never
+    builds, as the JAX package builds only the configured methods'
+    tables."""
     F = cfg.functions
     b = {}
 
     def pair(name, max_bits, haar_bits, bior_bits, fn, method_key, neg=False, suffix=""):
-        b[f"{name}_haar{suffix}"] = (method_key, lambda: _generate_haar(max_bits, haar_bits, fn, neg))
-        b[f"{name}_bior{suffix}"] = (method_key, lambda: _generate_bior(max_bits, bior_bits, fn, neg))
+        """The haar and bior tables of ``name``; the sizes are config key
+        names (``max_bits`` may be an int)."""
+        def read(key):
+            return key if isinstance(key, int) else getattr(F, key)
 
+        b[f"{name}_haar{suffix}"] = (method_key, (max_bits, haar_bits), lambda: _generate_haar(
+            read(max_bits), read(haar_bits), fn, neg))
+        b[f"{name}_bior{suffix}"] = (method_key, (max_bits, bior_bits), lambda: _generate_bior(
+            read(max_bits), read(bior_bits), fn, neg))
+
+    exp_keys = ("exp_lut_max_bits", "exp_haar_size_bits", "exp_bior_size_bits", "exp_neg_lut_size")
     for name in ("exp_haar", "exp_bior", "nexp_low", "nexp_high", "nexp_haar", "nexp_bior"):
-        b[name] = ("exp_method", lambda name=name: _exp_tables()[name])
-    pair("log", F.log_lut_max_bits, F.log_haar_size_bits, F.log_bior_size_bits, np.log,
-         "log_method")
-    pair("reciprocal", F.reciprocal_lut_max_bits, F.reciprocal_haar_size_bits,
-         F.reciprocal_bior_size_bits, np.reciprocal, "reciprocal_method")
-    pair("sqrt", F.sqrt_lut_max_bits, F.sqrt_haar_size_bits, F.sqrt_bior_size_bits, np.sqrt,
-         "sqrt_method")
-    pair("inv_sqrt", F.inv_sqrt_lut_max_bits, F.inv_sqrt_haar_size_bits,
-         F.inv_sqrt_bior_size_bits, _inv_sqrt, "inv_sqrt_method")
+        b[name] = ("exp_method", exp_keys, lambda name=name: _exp_tables()[name])
+    for name, fn in (("log", np.log), ("reciprocal", np.reciprocal), ("sqrt", np.sqrt),
+                     ("inv_sqrt", _inv_sqrt)):
+        pair(name, f"{name}_lut_max_bits", f"{name}_haar_size_bits", f"{name}_bior_size_bits",
+             fn, f"{name}_method")
     if "inv_sqrt_tailored_0_lut_max_bits" in F:
         for i in (0, 1):
-            b[f"inv_sqrt_tailored_haar_{i}"] = ("inv_sqrt_method", lambda i=i: _generate_haar(
+            b[f"inv_sqrt_tailored_haar_{i}"] = ("inv_sqrt_method", (
+                f"inv_sqrt_tailored_{i}_lut_max_bits", f"inv_sqrt_tailored_{i}_haar_size_bits"),
+                lambda i=i: _generate_haar(
                 getattr(F, f"inv_sqrt_tailored_{i}_lut_max_bits"),
                 getattr(F, f"inv_sqrt_tailored_{i}_haar_size_bits"), _inv_sqrt))
+    trig = ("trigonometry_haar_size_bits", "trigonometry_bior_size_bits")
     for fname, fn in (("sin", np.sin), ("cos", np.cos)):
         periodic = (lambda g: (lambda x: g(x * np.pi * 2)))(fn)
-        pair(fname, 0, F.trigonometry_haar_size_bits, F.trigonometry_bior_size_bits, periodic,
-             "trigonometry_method")
-        pair(fname, F.trigonometry_lut_max_bits, F.trigonometry_haar_size_bits,
-             F.trigonometry_bior_size_bits, periodic, "trigonometry_method", True, "_lut_only")
-    st_h, st_b = F.sigmoid_tanh_haar_size_bits, F.sigmoid_tanh_bior_size_bits
-    pair("sigmoid", F.sigmoid_lut_max_bits, st_h, st_b, _sigmoid, "sigmoid_tanh_method")
-    pair("sigmoid", F.sigmoid_lut_max_bits, st_h, st_b, _sigmoid, "sigmoid_tanh_method", True,
+        pair(fname, 0, *trig, periodic, "trigonometry_method")
+        pair(fname, "trigonometry_lut_max_bits", *trig, periodic, "trigonometry_method", True,
+             "_lut_only")
+    st = ("sigmoid_tanh_haar_size_bits", "sigmoid_tanh_bior_size_bits")
+    pair("sigmoid", "sigmoid_lut_max_bits", *st, _sigmoid, "sigmoid_tanh_method")
+    pair("sigmoid", "sigmoid_lut_max_bits", *st, _sigmoid, "sigmoid_tanh_method", True,
          "_lut_only")
-    pair("tanh", F.tanh_lut_max_bits, st_h, st_b, np.tanh, "sigmoid_tanh_method")
+    pair("tanh", "tanh_lut_max_bits", *st, np.tanh, "sigmoid_tanh_method")
     # as in the JAX package, the lut-only tanh tables span the sigmoid domain
-    pair("tanh", F.sigmoid_lut_max_bits, st_h, st_b, np.tanh, "sigmoid_tanh_method", True,
-         "_lut_only")
-    pair("erf", F.erf_lut_max_bits, F.erf_haar_size_bits, F.erf_bior_size_bits, _erf_np,
-         "erf_method")
-    pair("erf", F.erf_lut_max_bits, F.erf_haar_size_bits, F.erf_bior_size_bits, _erf_np,
-         "erf_method", True, "_lut_only")
-    pair("gelu", F.gelu_lut_max_bits, F.gelu_haar_size_bits, F.gelu_bior_size_bits,
-         lambda x: _relu(x) - _gelu(x), "gelu_method")
-    pair("gelu", F.gelu_lut_max_bits, F.gelu_haar_size_bits, F.gelu_bior_size_bits, _gelu,
-         "gelu_method", True, "_lut_only")
-    pair("silu", F.silu_lut_max_bits, F.silu_haar_size_bits, F.silu_bior_size_bits,
-         lambda x: _relu(x) - _silu(x), "silu_method")
-    pair("silu", F.silu_lut_max_bits, F.silu_haar_size_bits, F.silu_bior_size_bits, _silu,
-         "silu_method", True, "_lut_only")
+    pair("tanh", "sigmoid_lut_max_bits", *st, np.tanh, "sigmoid_tanh_method", True, "_lut_only")
+    for name, fn, lut_only in (("erf", _erf_np, _erf_np),
+                               ("gelu", lambda x: _relu(x) - _gelu(x), _gelu),
+                               ("silu", lambda x: _relu(x) - _silu(x), _silu)):
+        sizes = (f"{name}_lut_max_bits", f"{name}_haar_size_bits", f"{name}_bior_size_bits")
+        pair(name, *sizes, fn, f"{name}_method")
+        pair(name, *sizes, lut_only, f"{name}_method", True, "_lut_only")
     return b
 
 
 _LUT_METHODS = ("haar", "bior", "haar-lut-only", "bior-lut-only")
 _EXTRA_METHODS = {"exp_method": ("split",), "inv_sqrt_method": ("tailored_haar",)}
+
+
+# every table built in this process, by (name, precision, its size values)
+_BUILT = {}
 
 
 class _LazyTables(dict):
@@ -197,18 +208,22 @@ class _LazyTables(dict):
         self._builders = builders
 
     def __missing__(self, name):
-        method_key, build = self._builders[name]
+        method_key, sizes, build = self._builders[name]
         method = getattr(cfg.functions, method_key)
         if method not in _LUT_METHODS + _EXTRA_METHODS.get(method_key, ()):
             raise KeyError(f"table {name!r} is not built under {method_key}={method!r}")
-        table = build()
+        key = (name, cfg.encoder.precision_bits) + tuple(
+            k if isinstance(k, int) else getattr(cfg.functions, k) for k in sizes)
+        table = _BUILT.get(key)
+        if table is None:
+            table = _BUILT[key] = build()
         self[name] = table
         return table
 
     def names(self):
         """Every table the current config builds (the JAX package's set)."""
         return [
-            n for n, (key, _) in self._builders.items()
+            n for n, (key, _, _) in self._builders.items()
             if getattr(cfg.functions, key) in _LUT_METHODS + _EXTRA_METHODS.get(key, ())
         ]
 
@@ -227,6 +242,13 @@ class LookupTables:
         inst.LUTs = _LazyTables(_table_builders())
         cls._instance = inst
         return inst
+
+    def build_all(self):
+        """Build every table the current config's methods use (the JAX
+        package's initialize_luts at init)."""
+        for name in self.LUTs.names():
+            self.LUTs[name]
+        return self
 
     @staticmethod
     def _config_key():

@@ -162,6 +162,15 @@ def _max_helper_accelerated_cascade(enc_tensor, dim):
     return _max_helper_double_log_reduction(reduced, dim)
 
 
+def _scan_knob(name: str, default: int) -> int:
+    """``cfg.functions.<name>``, or ``default`` where the profile lacks it
+    (maximum.py:299-316)."""
+    try:
+        return int(getattr(cfg.functions, name))
+    except (AttributeError, TypeError):
+        return default
+
+
 def _use_fused_max_step() -> bool:
     """cfg.mpc.fused_max_step = "cuda": each tournament step (compare +
     select) as one fused pass (``kernels/max_step.py``); 2 parties only."""
@@ -210,10 +219,11 @@ def _max_helper_scan_reduction(enc_tensor, dim):
         prec = enc_tensor.encoder.precision_bits
         x = x.pad((0, padded - n), value=-float(2 ** (_compare_bits() - 3 - prec)))
 
-    F = cfg.functions
-    fixed_width = 1 << int(math.floor(math.log2(builtins.max(int(F.scan_fixed_width), 1))))
-    cascade_factor = builtins.max(int(F.scan_cascade_factor), 2)
-    cascade_min = 1 << int(math.floor(math.log2(builtins.max(int(F.scan_cascade_min), 1))))
+    fixed_width = 1 << int(math.floor(math.log2(builtins.max(
+        _scan_knob("scan_fixed_width", 2048), 1))))
+    cascade_factor = builtins.max(_scan_knob("scan_cascade_factor", 8), 2)
+    cascade_min = 1 << int(math.floor(math.log2(builtins.max(
+        _scan_knob("scan_cascade_min", 128), 1))))
     fused = _use_fused_max_step()
 
     def fold_to(x, width_out):

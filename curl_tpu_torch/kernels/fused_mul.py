@@ -344,7 +344,11 @@ def launch_square_chain(trunc, m, x, steps: int, key: keys.KeyRef, count: int) -
 
 def fused_mul(op, trunc, m, x, y, key: keys.KeyRef, count: int) -> torch.Tensor:
     """(2, *shape) result shares: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    version on a CPU tensor (on the meta device, where a lazy scope
+    evaluates shapes, the output's shape)."""
+    if x.is_meta:
+        shape = _check(op, trunc, m, x, y, count)
+        return torch.empty((2,) + tuple(shape), dtype=torch.int64, device="meta")
     if x.device.type != "cuda":
         return plain(op, trunc, m, x, y, key, count)
     return launch(op, trunc, m, x, y, key, count)
@@ -353,6 +357,8 @@ def fused_mul(op, trunc, m, x, y, key: keys.KeyRef, count: int) -> torch.Tensor:
 def square_chain(trunc, m, x, steps: int, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The chain: one launch on a CUDA tensor, the plain version on a CPU
     tensor."""
+    if x.is_meta:
+        return torch.empty(x.shape, dtype=torch.int64, device="meta")
     if x.device.type != "cuda":
         return plain_square_chain(trunc, m, x, steps, key, count)
     return launch_square_chain(trunc, m, x, steps, key, count)

@@ -422,7 +422,10 @@ def launch_butterfly_chain(x, steps: int, key: keys.KeyRef, count: int) -> torch
 
 
 def ltz(d, key: keys.KeyRef, count: int) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor (on the
+    meta device, where a lazy scope evaluates shapes, the output's shape)."""
+    if d.is_meta:
+        return torch.empty(d.shape, dtype=torch.int64, device="meta")
     if d.device.type != "cuda":
         return plain_ltz(d, key, count)
     return launch_ltz(d, key, count)
@@ -430,6 +433,8 @@ def ltz(d, key: keys.KeyRef, count: int) -> torch.Tensor:
 
 def max_step(carry, rolled, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    if carry.is_meta:
+        return torch.empty(carry.shape, dtype=torch.int64, device="meta")
     if carry.device.type != "cuda":
         return plain_max_step(carry, rolled, key, count)
     return launch_max_step(carry, rolled, key, count)
@@ -437,6 +442,9 @@ def max_step(carry, rolled, key: keys.KeyRef, count: int) -> torch.Tensor:
 
 def fold_chain(chunked, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The fold kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if chunked.is_meta:
+        return torch.empty(chunked.select(chunked.dim() - 2, 0).shape, dtype=torch.int64,
+                           device="meta")
     if chunked.device.type != "cuda":
         return plain_fold_chain(chunked, key, count)
     return launch_fold_chain(chunked, key, count)
@@ -445,6 +453,8 @@ def fold_chain(chunked, key: keys.KeyRef, count: int) -> torch.Tensor:
 def butterfly_chain(x, steps: int, key: keys.KeyRef, count: int) -> torch.Tensor:
     """The butterfly kernel on a CUDA tensor, the plain version on a CPU
     tensor."""
+    if x.is_meta:
+        return torch.empty(x.shape, dtype=torch.int64, device="meta")
     if x.device.type != "cuda":
         return plain_butterfly_chain(x, steps, key, count)
     return launch_butterfly_chain(x, steps, key, count)

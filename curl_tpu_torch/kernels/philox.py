@@ -179,7 +179,10 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def stream(key: int, counter: int, n: int, device) -> torch.Tensor:
-    """Plain version of one stream: n int64 elements of (key, counter)."""
+    """Plain version of one stream: n int64 elements of (key, counter); on
+    the meta device (a lazy scope's shape evaluation) their shape only."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(n, dtype=torch.int64, device="meta")
     j = torch.arange((n + 1) // 2, dtype=torch.int64, device=device)
     c2 = torch.full_like(j, counter & _M32)
     c3 = torch.full_like(j, (counter >> 32) & _M32)

@@ -26,6 +26,7 @@ import torch
 from .. import nn
 from .. import random as rng
 from ..config import cfg
+from ..lazy import call as lazy_call
 from ..mpc.mpc import MPCTensor
 from ..mpc.primitives import beaver
 from ..mpc.primitives.arithmetic import ArithmeticSharedTensor
@@ -45,9 +46,15 @@ class ChunkedEmbedding(nn.Module):
         self.register_param("tchunks", chunks)
 
     def forward(self, x):
-        chunks = [t._tensor for t in self._params["tchunks"]]
-        out = beaver.evaluate_embed_chunked(x._tensor, chunks, self.vocab, self.embed_dim)
-        return MPCTensor(ArithmeticSharedTensor(out.share, chunks[0].encoder))
+        return lazy_call(_embed_chunked, x, self._params["tchunks"], self.vocab, self.embed_dim)
+
+
+def _embed_chunked(x, tchunks, vocab, embed_dim):
+    """The private embedding of ``x`` over the table's vocab slices (one op
+    of a lazy scope)."""
+    chunks = [t._tensor for t in tchunks]
+    out = beaver.evaluate_embed_chunked(x._tensor, chunks, vocab, embed_dim)
+    return MPCTensor(ArithmeticSharedTensor(out.share, chunks[0].encoder))
 
 
 def _install(module, sd, prefix="", keys=None):

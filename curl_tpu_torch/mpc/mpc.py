@@ -8,6 +8,13 @@ library (``curl_tpu_torch.functions``) installs its ops on this class at
 import, as the JAX package does. It is also the port's user-facing
 encrypted tensor (``curl_tpu_torch.CrypTensor``): the shares of all parties
 are already stacked, so no per-party trace is needed.
+
+Inside a lazy scope (``lazy.py``) an op hands out a *pending* MPCTensor: it
+holds no inner tensor yet, only its tape's record and the op's abstract
+result (an inner tensor whose share lies on the ``meta`` device). Shape,
+ptype, encoder and ``repr`` are served from that; the inner tensor itself
+(``_tensor``: ``share``, every reveal, every op run outside a scope) flushes
+the tape first (curl_tpu/__init__.py:246-270).
 """
 
 from __future__ import annotations
@@ -85,7 +92,9 @@ def _unpack_lanes(word, width, meta, lane_bit):
 
 class MPCTensor:
     __slots__ = (
-        "_tensor",
+        "_inner",
+        # a pending tensor's record (``lazy.Pending``), else None
+        "_lazy",
         "ptype",
         # the autograd tape's fields (mpc.py:106-122): Python-side, set by
         # ``autograd.apply_function`` and ``backward``, never part of a
@@ -95,14 +104,61 @@ class MPCTensor:
         "grad_fn",
         "grad_output_index",
         "grad_fn_outputs",
+        "__weakref__",
     )
 
     def __init__(self, tensor, ptype=Ptype.arithmetic):
-        self._tensor = tensor
+        self._inner = tensor
+        self._lazy = None
         self.ptype = ptype
         self.requires_grad = False
         self.grad = None
         self.grad_fn = None
+
+    @classmethod
+    def _pending(cls, record, ptype):
+        """A pending output of a lazy scope: ``record`` its ``lazy.Pending``
+        (with the op's abstract inner tensor)."""
+        t = cls.__new__(cls)
+        t._inner = None
+        t._lazy = record
+        t.ptype = ptype
+        t.requires_grad = False
+        t.grad = None
+        t.grad_fn = None
+        return t
+
+    @property
+    def _tensor(self):
+        """The inner share tensor; a pending tensor's tape is flushed first."""
+        inner = self._inner
+        if inner is None:
+            self._lazy.tape.flush()
+            inner = self._inner
+            if inner is None:
+                raise RuntimeError("the lazy flush did not fill this tensor")
+        return inner
+
+    @_tensor.setter
+    def _tensor(self, value):
+        self._inner = value
+        self._lazy = None
+
+    def _peek(self):
+        """The inner tensor, or a pending tensor's abstract one (its share
+        on the meta device), without flushing."""
+        return self._inner if self._inner is not None else self._lazy.abstract
+
+    def _assign(self, other: "MPCTensor"):
+        """Hold ``other``'s value from now on, pending or not (an optimizer
+        step's new parameter): no flush."""
+        self.ptype = other.ptype
+        if other._inner is not None:
+            self._tensor = other._inner
+            return
+        self._inner = None
+        self._lazy = other._lazy
+        other._lazy.tape.hold(self)
 
     # -- constructors ------------------------------------------------------
     @classmethod
@@ -127,15 +183,15 @@ class MPCTensor:
 
     @property
     def encoder(self):
-        return self._tensor.encoder
+        return self._peek().encoder
 
     @property
     def shape(self):
-        return self._tensor.shape
+        return self._peek().shape
 
     @property
     def ndim(self):
-        return self._tensor.ndim
+        return self._peek().ndim
 
     def size(self, dim=None):
         return self.shape if dim is None else self.shape[dim]
@@ -147,7 +203,9 @@ class MPCTensor:
         return math.prod(self.shape)
 
     def __repr__(self):
-        return f"MPCTensor({self._tensor}, ptype={self.ptype})"
+        if self._inner is None:
+            return f"MPCTensor(pending, shape={tuple(self.shape)}, ptype={self.ptype})"
+        return f"MPCTensor({self._inner}, ptype={self.ptype})"
 
     def clone(self):
         return MPCTensor(self._tensor.clone(), self.ptype)

@@ -32,6 +32,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import comm
 from .. import random as rng
 from ..mpc.mpc import MPCTensor
 from ..mpc.primitives.compressed import SeedCompressedArithmetic
@@ -676,7 +677,7 @@ class Attention(Module):
         key = key.reshape(b, t, h, d).permute(0, 2, 3, 1)
         value = value.reshape(b, t, h, d).transpose(1, 2)
         attn = query.matmul(key) / math.sqrt(d)
-        mask = causal_mask(t, x.share.device) if self.causal else None
+        mask = causal_mask(t, comm.get_device()) if self.causal else None
         attn = attn.softmax(-1, mask=mask)
         y = attn.matmul(value).transpose(1, 2).reshape(b, t, self.embed_dim)
         return self.proj(y)

@@ -76,5 +76,6 @@ class SGD(Optimizer):
                     else:
                         d_p = buf
 
-                # the parameter's shares swapped in place (sgd.py:74-82)
-                p._tensor = p.sub(d_p.mul(lr))._tensor
+                # the parameter's shares swapped in place (sgd.py:74-82); in a
+                # lazy scope the parameter becomes the pending update
+                p._assign(p.sub(d_p.mul(lr)))

@@ -49,7 +49,9 @@ static buffers, and each replay trains on from the last.
 
 CommStats are counted once, at capture, as curl_tpu counts them once at
 trace; so are the kernels' launch counts. The runner keeps the capture's
-CommStats (``stats``). Tensors that ``fn`` reaches other than through its
+CommStats (``stats``); ``count_each_call=True`` counts them again at every
+call that does not capture (the lazy scope's flushes, which curl_tpu traces
+anew each time). Tensors that ``fn`` reaches other than through its
 arguments are read in place, at the address they had at capture; the
 public constants that the warm-up made are kept with the graph
 (``ring.holding_constants``).
@@ -278,12 +280,15 @@ class CompiledParties:
 
     ``fn`` runs with no tuple cache bound (``provider.serving(None)``): its
     provider calls generate their tuples inline, even where eager ops are
-    served from a host cache."""
+    served from a host cache. ``count_each_call``: every call that replays
+    (or, on the CPU, reruns) a capture counts its CommStats again."""
 
-    def __init__(self, fn, world_size: int, copy_out: bool = True):
+    def __init__(self, fn, world_size: int, copy_out: bool = True,
+                 count_each_call: bool = False):
         self.fn = fn
         self.world_size = world_size
         self.copy_out = copy_out
+        self.count_each_call = count_each_call
         self.captures = 0
         self.stats = self.counter = self.constants = self.warmup_s = self.capture_s = None
         self._entries = {}
@@ -304,6 +309,7 @@ class CompiledParties:
         if entry is not None:
             moved = {i for i, ptr in entry.inplace.items() if leaves[i].data_ptr() != ptr}
             if not moved:
+                self._recount(entry)
                 return self._replay(entry, leaves, keys)
             # read through static buffers from now on, at the same draw
             # counters: where an argument lies does not change a call's shares
@@ -312,6 +318,10 @@ class CompiledParties:
             entry = None  # the old graph and its pool go first
         entry = self._capture(key, spec, leaves, staged, keys, device, counter)
         return self._replay(entry, leaves, keys)
+
+    def _recount(self, entry):
+        if self.count_each_call:
+            comm.add_communication_stats(entry.stats)
 
     def _record(self, key, entry, before):
         entry.stats = _since(before)
@@ -335,9 +345,11 @@ class CompiledParties:
         rng.set_counter(entry.counter)
         try:
             with _uncounted(), mpc_context(keys, self.world_size), _provider().serving(None):
-                return self.fn(*args)
+                out = self.fn(*args)
         finally:
             rng.set_counter(resume)
+        self._recount(entry)
+        return out
 
     def _capture(self, key, spec, leaves, staged, keys, device, counter):
         """Warm up and capture ``fn`` over ``leaves``, drawing from

@@ -149,6 +149,13 @@ def set_keys(keys: dict):
     _keys = keys
 
 
+def clear_keys():
+    """Drop the session's streams (``uninit``): draws raise until the next
+    ``set_keys``."""
+    global _keys
+    _keys = None
+
+
 def session_keys():
     """The session's key dict, or None before ``init``."""
     return _keys

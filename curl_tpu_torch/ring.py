@@ -101,6 +101,8 @@ def host_constant(arr, device) -> torch.Tensor:
     the same forward captured in a CUDA graph copies nothing from the host.
     Never written into."""
     arr = np.ascontiguousarray(arr)
+    if torch.device(device).type == "meta":  # a lazy scope's shape evaluation
+        return torch.empty(arr.shape, dtype=torch.from_numpy(np.zeros(1, arr.dtype)).dtype, device="meta")
     key = (str(torch.device(device)), arr.dtype.str, arr.shape, arr.tobytes())
     t = _held[-1].get(key) if _held else None
     if t is None:
@@ -231,6 +233,9 @@ def _plain_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     The ring-mm kernel's plain version: runs on any device (float64 plane
     products are exact, see the module docstring). Batch dims broadcast."""
     K = a.shape[-1]
+    if a.is_meta or b.is_meta:  # a lazy scope's shape evaluation
+        batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        return torch.empty(batch + (a.shape[-2], b.shape[-1]), dtype=torch.int64, device="meta")
     if K >= MAX_EXACT_K:
         # a K = 2^17 plane could reach exactly 2^31: split, as the JAX path
         half = K // 2
